@@ -1,0 +1,30 @@
+"""Charsets (counterpart of dtlr_tpu/data/charset.py). The port keeps
+its own copy of the 64-character no-accent charset."""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import List, Sequence
+
+_ASSET_DIR = os.path.join(os.path.dirname(__file__), "charsets")
+DEFAULT_CHARSET_NO_ACCENT = "default_charset_without_accent.json"
+
+
+def load_charset(name: str = DEFAULT_CHARSET_NO_ACCENT) -> List[str]:
+    with open(os.path.join(_ASSET_DIR, name)) as fh:
+        return json.load(fh)
+
+
+def resolve_synthetic_charset(sub: str) -> List[str]:
+    """``no_accent`` is the 64-character set; ``no_accent_space`` adds
+    ' ' as class 64 (the flagship checkpoint's 65 classes)."""
+    if sub == "no_accent":
+        return load_charset()
+    if sub == "no_accent_space":
+        return load_charset() + [" "]
+    raise ValueError(f"unknown synthetic_charset {sub!r}")
+
+
+def labels_to_text(labels: Sequence[int], charset: Sequence[str]) -> str:
+    return "".join(charset[i] for i in labels if 0 <= i < len(charset))

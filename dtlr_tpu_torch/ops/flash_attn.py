@@ -1,0 +1,222 @@
+"""Fused multi-head attention with the Gaussian box prior (counterpart of
+dtlr_tpu/ops/flash_attn.py).
+
+``flash_mha`` is the decoder's attention core. On a CUDA tensor it
+launches the hand-written kernel of ``csrc/box_attn.cu`` (the port of the
+Pallas kernels ``_mha_box_kernel`` and, with ``prior=None``,
+``_mha_kernel``); on a CPU tensor it runs ``dense_reference``, the plain
+PyTorch version of the same math. The kernel is compiled with ``nvcc``
+for sm_90a at first use into ``dtlr_tpu_torch/build/`` and bound with
+ctypes.
+
+What bounds the kernel on an H100, and what its design does about it,
+is written at the top of the CUDA source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import time
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "box_attn.cu")
+BUILD_DIR = os.path.join(_PKG, "build")
+HEAD_DIM = 32  # the kernel's compiled head dimension
+MAX_LEVELS = 8
+
+#: the kernel's two instantiations (with and without the box prior), the
+#: keys of ``flash_mha.launches``
+KERNELS = ("mha_box", "mha")
+
+
+class BoxPrior(NamedTuple):
+    """Per-query Gaussian locality prior, before the level select.
+
+    cx, cy: (B, Q, L) box centres in padded-frame fractions.
+    ihw, ihh: (B, Q, L) reciprocals of the clamped box half-extents.
+    level: (S,) int32 feature level of each flattened key.
+    px, py: (S,) pixel-centre coordinates of each key.
+    gamma: (M,) per-head sharpness, exp(ca_box_gamma).
+    """
+
+    cx: torch.Tensor
+    cy: torch.Tensor
+    ihw: torch.Tensor
+    ihh: torch.Tensor
+    level: torch.Tensor
+    px: torch.Tensor
+    py: torch.Tensor
+    gamma: torch.Tensor
+
+
+def make_box_prior(reference_points_input: torch.Tensor,
+                   spatial_shapes: Sequence[Tuple[int, int]],
+                   gamma: torch.Tensor) -> BoxPrior:
+    """Split the dense box prior into per-query and per-key arrays: for a
+    level-l key pixel p and query box b, d2 = ((px-cx_l)/hw_l)^2 +
+    ((py-cy_l)/hh_l)^2 with hw, hh the half-extents clamped at 1e-3."""
+    box = reference_points_input.float()  # (B, Q, L, 4)
+    dev = box.device
+    pxs, pys, lvls = [], [], []
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+        xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+        pys.append(ys[:, None].expand(h, w).reshape(-1))
+        pxs.append(xs[None, :].expand(h, w).reshape(-1))
+        lvls.append(torch.full((h * w,), lvl, dtype=torch.int32, device=dev))
+    return BoxPrior(
+        cx=box[..., 0].contiguous(),
+        cy=box[..., 1].contiguous(),
+        ihw=1.0 / (box[..., 2] * 0.5).clamp(min=1e-3),
+        ihh=1.0 / (box[..., 3] * 0.5).clamp(min=1e-3),
+        level=torch.cat(lvls),
+        px=torch.cat(pxs),
+        py=torch.cat(pys),
+        gamma=gamma.float().contiguous(),
+    )
+
+
+def dense_reference(qh, kh, vh, key_bias, prior: Optional[BoxPrior]):
+    """The kernel's math with the (B, M, Q, S) scores materialized: the
+    kernel's plain version and the CPU path. qh (B, M, Q, D), kh/vh
+    (B, M, S, D), key_bias (B, S) additive. Returns (B, M, Q, D) fp32."""
+    D = qh.shape[-1]
+    logits = qh.float() @ kh.float().transpose(-1, -2) / math.sqrt(D)
+    if prior is not None:
+        lvl = prior.level.long()
+        dx = (prior.px - prior.cx[..., lvl]) * prior.ihw[..., lvl]  # (B, Q, S)
+        dy = (prior.py - prior.cy[..., lvl]) * prior.ihh[..., lvl]
+        d2 = dx * dx + dy * dy
+        logits = logits - (0.5 * prior.gamma)[None, :, None, None] * d2[:, None]
+    logits = logits + key_bias.float()[:, None, None, :]
+    return logits.softmax(-1) @ vh.float()
+
+
+def _check(name, t, shape, dtypes, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+              key_bias: torch.Tensor, prior: Optional[BoxPrior] = None) -> torch.Tensor:
+    """Fused attention: out (B, M, Q, D) fp32 from qh (B, M, Q, D), kh/vh
+    (B, M, S, D) in fp32 or bf16, additive key_bias (B, S) fp32 (-1e9 at
+    padded keys) and an optional BoxPrior. CPU tensors take
+    ``dense_reference``; CUDA tensors launch the kernel or raise."""
+    if qh.device.type == "cpu":
+        return dense_reference(qh, kh, vh, key_bias, prior)
+    if qh.device.type != "cuda":
+        raise ValueError(f"flash_mha runs on cuda or cpu, got {qh.device}")
+    B, M, Q, D = qh.shape
+    S = kh.shape[2]
+    dev = qh.device
+    if D != HEAD_DIM:
+        raise ValueError(f"the kernel is compiled for head dim {HEAD_DIM}, got {D}")
+    io_types = (torch.float32, torch.bfloat16)
+    _check("qh", qh, (B, M, Q, D), io_types, dev)
+    _check("kh", kh, (B, M, S, D), (qh.dtype,), dev)
+    _check("vh", vh, (B, M, S, D), (qh.dtype,), dev)
+    _check("key_bias", key_bias, (B, S), (torch.float32,), dev)
+    f32 = (torch.float32,)
+    if prior is not None:
+        L = prior.cx.shape[-1]
+        if not 1 <= L <= MAX_LEVELS:
+            raise ValueError(f"the kernel takes 1..{MAX_LEVELS} levels, got {L}")
+        for name in ("cx", "cy", "ihw", "ihh"):
+            _check(name, getattr(prior, name), (B, Q, L), f32, dev)
+        _check("level", prior.level, (S,), (torch.int32,), dev)
+        _check("px", prior.px, (S,), f32, dev)
+        _check("py", prior.py, (S,), f32, dev)
+        _check("gamma", prior.gamma, (M,), f32, dev)
+        box_ptrs = [t.data_ptr() for t in prior]
+    else:
+        L = 1
+        box_ptrs = [None] * 8
+    out = torch.empty((B, M, Q, D), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dtlr_box_attn_fwd(
+            qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), key_bias.data_ptr(),
+            *box_ptrs, out.data_ptr(), B, M, Q, S, D, L,
+            int(qh.dtype == torch.bfloat16), int(prior is not None), stream)
+    if err != 0:
+        raise RuntimeError(f"box_attn kernel launch failed with CUDA error {err}")
+    flash_mha.launches["mha_box" if prior is not None else "mha"] += 1
+    return out
+
+
+#: launches of the CUDA kernel by instantiation; the plain version is
+#: never counted
+flash_mha.launches = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        flash_mha.launches[name] = 0
+
+
+# ------------------------------------------------------------------ build
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path() -> str:
+    """Build output named by the source's hash, so an edited source is
+    rebuilt and an unchanged one is not."""
+    with open(SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libbox_attn_{digest}.so")
+
+
+def build_library() -> dict:
+    """Compile csrc/box_attn.cu for sm_90a into a shared library with a
+    plain C interface. Returns the path, the seconds nvcc took and what
+    ptxas reported (registers, shared memory, spills)."""
+    so = library_path()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", tmp, SOURCE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return {"path": so, "seconds": seconds, "ptxas": proc.stderr}
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    so = library_path()
+    if not os.path.exists(so):
+        build_library()
+    lib = ctypes.CDLL(so)
+    fn = lib.dtlr_box_attn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
