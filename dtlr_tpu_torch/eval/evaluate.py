@@ -4,7 +4,8 @@ of dtlr_tpu/eval/evaluate.py:73-123 for one decode point).
 Usage:
     python -m dtlr_tpu_torch.eval.evaluate --params artifacts/r4ft_params.npz \
         --lines dtlr_tpu_torch/assets/smoke_lines.npz \
-        [--TH 0.1 --NMS 0.4 | --greedy] [--device cuda]
+        [--TH 0.1 --NMS 0.4 | --greedy] [--device cuda] \
+        [--compute_dtype bfloat16|float32]
 
 ``--lines`` is an npz with uint8 ``images`` (N, H, W, 3), ``valid_hw``
 (N, 2), ``texts`` and ``charset``. Prints one JSON record
@@ -14,6 +15,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from typing import Dict, List
 
@@ -35,12 +37,16 @@ def load_lines(path: str) -> Dict[str, object]:
                 for k in npz.files}
 
 
-def load_model(params_path: str, device: str = "cuda") -> DINO:
-    """The flagship model with a checkpoint's weights; the class count
-    comes from the checkpoint's class head."""
+def load_model(params_path: str, device: str = "cuda",
+               compute_dtype: str = FLAGSHIP.compute_dtype) -> DINO:
+    """The flagship model with a checkpoint's weights, computing in
+    ``compute_dtype``; the class count comes from the checkpoint's class
+    head and the label book's size from its ``label_enc``."""
     tree = params_from_npz(params_path)
     num_classes = tree["params/class_embed/fc/kernel"].shape[-1]
-    model = build_dino(FLAGSHIP, num_classes, device)
+    cfg = dataclasses.replace(FLAGSHIP, compute_dtype=compute_dtype,
+                              dn_labelbook_size=tree["params/label_enc"].shape[0] - 1)
+    model = build_dino(cfg, num_classes, device)
     load_into(model, tree)
     return model
 
@@ -123,6 +129,8 @@ def parse_args(argv=None):
                    help="greedy decode instead of TH/NMS")
     p.add_argument("--device", default="cuda")
     p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--compute_dtype", default=FLAGSHIP.compute_dtype,
+                   choices=("bfloat16", "float32"))
     return p.parse_args(argv)
 
 
@@ -131,7 +139,7 @@ def main(argv=None) -> dict:
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    model = load_model(args.params, device=args.device)
+    model = load_model(args.params, device=args.device, compute_dtype=args.compute_dtype)
     lines = load_lines(args.lines)
     res = read_lines(model, lines, args.TH, args.NMS, args.batch_size)
     if args.greedy:

@@ -14,13 +14,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
 
 from .. import resolve_device
 from ..utils.boxes import inverse_sigmoid
-from .layers import MLP
+from .layers import MLP, Conv, Dense, GroupNorm
 from .position_encoding import sine_position_embedding_hw
 from .resnet import ResNet
 from .transformer import DeformableTransformer
@@ -39,9 +40,20 @@ class DinoConfig:
     dec_layers: int = 6
     dim_feedforward: int = 2048
     encoder_win: int = 32
+    #: rows of the CDN label encoder less one; None is JAX's default,
+    #: num_classes + 1 (dtlr_tpu/models/dino.py:354)
+    dn_labelbook_size: Optional[int] = None
+    #: "bfloat16" (the recipe, dtlr_tpu/configs/Latin.py:91) or "float32"
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute_dtype is bfloat16 or float32, got {self.compute_dtype!r}")
+        return getattr(torch, self.compute_dtype)
 
 
-FLAGSHIP = DinoConfig()
+FLAGSHIP = DinoConfig()  # bfloat16, as the recipe computes
 NUM_LEVELS = 4  # feature levels: layers 2-4 of the backbone and one more
 
 
@@ -59,9 +71,10 @@ def level_pad_mask(valid_hw: torch.Tensor, h: int, w: int, img_h: int,
 
 
 class ClassHead(nn.Module):
-    def __init__(self, hidden_dim: int, num_classes: int, prior_prob: float = 0.01):
+    def __init__(self, hidden_dim: int, num_classes: int, prior_prob: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc = nn.Linear(hidden_dim, num_classes)
+        self.fc = Dense(hidden_dim, num_classes, dtype=dtype)
         nn.init.constant_(self.fc.bias, -math.log((1 - prior_prob) / prior_prob))
 
     def forward(self, x):
@@ -71,8 +84,8 @@ class ClassHead(nn.Module):
 class BboxHead(MLP):
     """3-layer MLP giving a box delta (layers_0..layers_2)."""
 
-    def __init__(self, hidden_dim: int):
-        super().__init__(hidden_dim, hidden_dim, 4, 3)
+    def __init__(self, hidden_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(hidden_dim, hidden_dim, 4, 3, dtype)
 
 
 class DINO(nn.Module):
@@ -81,29 +94,33 @@ class DINO(nn.Module):
         self.cfg = cfg
         self.num_classes = num_classes
         C = cfg.hidden_dim
-        self.backbone_net = ResNet()
+        dt = cfg.dtype
+        self.backbone_net = ResNet(dt)
         chans = self.backbone_net.num_channels
         for i in range(NUM_LEVELS):
             if i < len(chans):
-                conv = nn.Conv2d(chans[i], C, 1)
+                conv = Conv(chans[i], C, 1, dtype=dt)
             else:
-                conv = nn.Conv2d(chans[-1] if i == len(chans) else C, C, 3,
-                                 stride=2, padding=1)
+                conv = Conv(chans[-1] if i == len(chans) else C, C, 3,
+                            stride=2, padding=1, dtype=dt)
             self.add_module(f"input_proj_{i}_conv", conv)
             # flax GroupNorm's default epsilon, not torch's
-            self.add_module(f"input_proj_{i}_norm", nn.GroupNorm(32, C, eps=1e-6))
+            self.add_module(f"input_proj_{i}_norm", GroupNorm(C, eps=1e-6))
         self.transformer = DeformableTransformer(
             d_model=C, n_heads=cfg.nheads, num_encoder_layers=cfg.enc_layers,
             num_decoder_layers=cfg.dec_layers, d_ffn=cfg.dim_feedforward,
             num_feature_levels=NUM_LEVELS,
-            num_queries=cfg.num_queries, encoder_win=cfg.encoder_win)
-        self.class_embed = ClassHead(C, num_classes)
-        self.bbox_embed = BboxHead(C)
-        self.enc_out_class_embed = ClassHead(C, num_classes)
-        self.enc_out_bbox_embed = BboxHead(C)
+            num_queries=cfg.num_queries, encoder_win=cfg.encoder_win, dtype=dt)
+        self.class_embed = ClassHead(C, num_classes, dtype=dt)
+        self.bbox_embed = BboxHead(C, dt)
+        self.enc_out_class_embed = ClassHead(C, num_classes, dtype=dt)
+        self.enc_out_bbox_embed = BboxHead(C, dt)
         # the CDN label encoder: training only, kept so that every leaf of
         # a checkpoint has a home
-        self.label_enc = nn.Parameter(torch.zeros(num_classes + 2, C))
+        labelbook = cfg.dn_labelbook_size
+        if labelbook is None:
+            labelbook = num_classes + 1
+        self.label_enc = nn.Parameter(torch.zeros(labelbook + 1, C))
 
     def levels(self, images: torch.Tensor, valid_hw: torch.Tensor):
         """Backbone and input projections: per level srcs (B, h, w, C),
@@ -131,9 +148,10 @@ class DINO(nn.Module):
             srcs, masks, poss, self.enc_out_class_embed, self.enc_out_bbox_embed,
             self.bbox_embed)
         n_dec = hs.shape[0]
-        outputs_coord = (self.bbox_embed(hs) + inverse_sigmoid(references[:n_dec])).sigmoid()
-        outputs_class = self.class_embed(hs)
-        interm_class = self.enc_out_class_embed(hs_enc[-1])
+        delta = self.bbox_embed(hs).float()
+        outputs_coord = (delta + inverse_sigmoid(references[:n_dec])).sigmoid()
+        outputs_class = self.class_embed(hs).float()
+        interm_class = self.enc_out_class_embed(hs_enc[-1]).float()
         return {
             "pred_logits": outputs_class[-1],
             "pred_boxes": outputs_coord[-1],

@@ -6,6 +6,11 @@ with ``encoder_type="windowed"``, ``decoder_ca="dense"`` and
 Every decoder attention goes through ``flash_mha``: the cross-attention
 with the box prior, and the self-attention, which has no mask at
 inference, without it. On CUDA both run the hand-written kernel.
+
+``dtype`` is the compute dtype of every projection, as flax's: the
+encoder's input, the position encodings and the learned content queries
+enter in it, the norms return float32, and the heads' outputs are taken
+to float32 before they meet the float32 anchors and references.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from torch.nn import functional as F
 
 from ..ops.flash_attn import make_box_prior
 from ..utils.boxes import inverse_sigmoid
-from .layers import MLP, MultiHeadAttention
+from .layers import MLP, Dense, LayerNorm, MultiHeadAttention
 from .position_encoding import gen_sineembed_for_position
 from .windowed_encoder import WindowedEncoderLayer
 
@@ -74,16 +79,17 @@ def top_k_stable(scores: torch.Tensor, k: int) -> torch.Tensor:
 class DecoderLayer(nn.Module):
     """Self-attention, dense cross-attention with the box prior, FFN."""
 
-    def __init__(self, d_model: int = 256, d_ffn: int = 2048, n_heads: int = 8):
+    def __init__(self, d_model: int = 256, d_ffn: int = 2048, n_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, n_heads)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype)
+        self.norm2 = LayerNorm(d_model)
         self.ca_box_gamma = nn.Parameter(torch.zeros(n_heads))
-        self.cross_attn = MultiHeadAttention(d_model, n_heads)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm3 = nn.LayerNorm(d_model, eps=1e-6)
+        self.cross_attn = MultiHeadAttention(d_model, n_heads, dtype)
+        self.norm1 = LayerNorm(d_model)
+        self.linear1 = Dense(d_model, d_ffn, dtype=dtype)
+        self.linear2 = Dense(d_ffn, d_model, dtype=dtype)
+        self.norm3 = LayerNorm(d_model)
 
     def forward(self, tgt, query_pos, reference_points_input, memory,
                 spatial_shapes, key_bias, memory_pos):
@@ -105,23 +111,26 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model: int = 256, n_heads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  d_ffn: int = 2048, num_feature_levels: int = 4,
-                 num_queries: int = 900, encoder_win: int = 32):
+                 num_queries: int = 900, encoder_win: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_model = d_model
+        self.compute_dtype = dtype
         self.num_queries = num_queries
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
         for i in range(num_encoder_layers):
             self.add_module(f"encoder_layer_{i}", WindowedEncoderLayer(
-                d_model, d_ffn, n_heads, win=encoder_win, shift=bool(i % 2)))
+                d_model, d_ffn, n_heads, win=encoder_win, shift=bool(i % 2), dtype=dtype))
         for i in range(num_decoder_layers):
-            self.add_module(f"decoder_layer_{i}", DecoderLayer(d_model, d_ffn, n_heads))
-        self.decoder_norm = nn.LayerNorm(d_model, eps=1e-6)
-        self.enc_output = nn.Linear(d_model, d_model)
-        self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-6)
+            self.add_module(f"decoder_layer_{i}",
+                            DecoderLayer(d_model, d_ffn, n_heads, dtype))
+        self.decoder_norm = LayerNorm(d_model)
+        self.enc_output = Dense(d_model, d_model, dtype=dtype)
+        self.enc_output_norm = LayerNorm(d_model)
         self.tgt_embed = nn.Parameter(torch.zeros(num_queries, d_model))
-        self.ref_point_head = MLP(2 * d_model, d_model, d_model, 2)
+        self.ref_point_head = MLP(2 * d_model, d_model, d_model, 2, dtype)
 
     def forward(self, srcs: List[torch.Tensor], masks: List[torch.Tensor],
                 pos_embeds: List[torch.Tensor], enc_class_head: nn.Module,
@@ -131,10 +140,10 @@ class DeformableTransformer(nn.Module):
         B = srcs[0].shape[0]
         C = self.d_model
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
-        src_flat = torch.cat([s.reshape(B, -1, C) for s in srcs], dim=1)
+        src_flat = torch.cat([s.reshape(B, -1, C) for s in srcs], dim=1).to(self.compute_dtype)
         mask_flat = torch.cat([m.reshape(B, -1) for m in masks], dim=1)
         pos_flat = torch.cat([(p + self.level_embed[lvl]).reshape(B, -1, C)
-                              for lvl, p in enumerate(pos_embeds)], dim=1)
+                              for lvl, p in enumerate(pos_embeds)], dim=1).to(self.compute_dtype)
         valid_ratios = get_valid_ratios(masks)
 
         memory = src_flat
@@ -147,8 +156,8 @@ class DeformableTransformer(nn.Module):
             memory, mask_flat, spatial_shapes)
         output_memory = self.enc_output_norm(self.enc_output(output_memory))
         enc_outputs_class = enc_class_head(output_memory)
-        enc_outputs_coord = enc_bbox_head(output_memory) + output_proposals
-        scores = enc_outputs_class.max(-1).values.masked_fill(~proposal_valid, -1e9)
+        enc_outputs_coord = enc_bbox_head(output_memory).float() + output_proposals
+        scores = enc_outputs_class.float().max(-1).values.masked_fill(~proposal_valid, -1e9)
         topk_idx = top_k_stable(scores, self.num_queries)
 
         def take(arr):
@@ -165,7 +174,7 @@ class DeformableTransformer(nn.Module):
         reference_points = refpoint_embed.sigmoid()
         ref_points = [reference_points]
         intermediate = []
-        out_dec = self.tgt_embed[None].expand(B, -1, -1)
+        out_dec = self.tgt_embed[None].expand(B, -1, -1).to(self.compute_dtype)
         for lid in range(self.num_decoder_layers):
             ref_input = reference_points[:, :, None, :] * ratios4  # (B, nq, L, 4)
             query_pos = self.ref_point_head(
@@ -173,7 +182,8 @@ class DeformableTransformer(nn.Module):
             out_dec = getattr(self, f"decoder_layer_{lid}")(
                 out_dec, query_pos, ref_input, memory, spatial_shapes, key_bias,
                 pos_flat)
-            reference_points = (bbox_head(out_dec) + inverse_sigmoid(reference_points)).sigmoid()
+            delta = bbox_head(out_dec).float()
+            reference_points = (delta + inverse_sigmoid(reference_points)).sigmoid()
             ref_points.append(reference_points)
             intermediate.append(self.decoder_norm(out_dec))
 

@@ -7,6 +7,11 @@ wraps round (Swin-style). Masked logits take ``finfo.min`` as in JAX, so
 a window with no valid key softmaxes to uniform weights instead of NaN.
 Levels then mix through bilinear resizes with antialiasing, which is
 what ``jax.image.resize`` does when it shrinks.
+
+With ``dtype=bfloat16`` the projections and the attention products
+compute in bf16, the softmax in float32 (cast back, as
+dtlr_tpu/models/windowed_encoder.py:50 does) and both norms return
+float32.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from .layers import Dense, LayerNorm
 
 
 def window_attention(q, k, v, key_valid, n_heads: int,
@@ -30,7 +37,9 @@ def window_attention(q, k, v, key_valid, n_heads: int,
     qh = q.view(Bw, N, n_heads, D).transpose(1, 2)
     kh = k.view(Bw, N, n_heads, D).transpose(1, 2)
     vh = v.view(Bw, N, n_heads, D).transpose(1, 2)
-    logits = qh @ kh.transpose(-1, -2) / math.sqrt(D)  # (Bw, H, N, N)
+    # JAX divides by sqrt(D) rounded to the inputs' dtype
+    scale = float(torch.tensor(math.sqrt(D)).to(q.dtype))
+    logits = qh @ kh.transpose(-1, -2) / scale  # (Bw, H, N, N)
     neg = torch.finfo(logits.dtype).min
     logits = logits.masked_fill(~key_valid[:, None, None, :], neg)
     if col_allow is not None:
@@ -38,32 +47,34 @@ def window_attention(q, k, v, key_valid, n_heads: int,
         lg = logits.view(B, nW, n_heads, h, win, h, win)
         lg = lg.masked_fill(~col_allow[None, :, None, None, :, None, :], neg)
         logits = lg.view(Bw, n_heads, N, N)
-    out = logits.softmax(-1) @ vh
+    out = logits.float().softmax(-1).to(vh.dtype) @ vh
     return out.transpose(1, 2).reshape(Bw, N, C)
 
 
 def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B, h0, w0, C) -> (B, h, w, C), bilinear with half-pixel centres
-    and antialiasing: ``jax.image.resize(x, ..., "bilinear")``."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+    and antialiasing: ``jax.image.resize(x, ..., "bilinear")``. Computed
+    in float32 (torch has no bf16 antialiased resize on the CPU) and
+    returned in the input's dtype, as JAX returns it."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
                       align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 class WindowedEncoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 2048, n_heads: int = 8,
-                 win: int = 32, shift: bool = False):
+                 win: int = 32, shift: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.d_model, self.n_heads, self.win, self.shift = d_model, n_heads, win, shift
-        self.qk = nn.Linear(d_model, 2 * d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
-        self.mix_up = nn.Linear(d_model, d_model)
-        self.mix_down = nn.Linear(d_model, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-6)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-6)
+        self.qk = Dense(d_model, 2 * d_model, dtype=dtype)
+        self.v_proj = Dense(d_model, d_model, dtype=dtype)
+        self.out_proj = Dense(d_model, d_model, dtype=dtype)
+        self.mix_up = Dense(d_model, d_model, dtype=dtype)
+        self.mix_down = Dense(d_model, d_model, dtype=dtype)
+        self.norm1 = LayerNorm(d_model)
+        self.linear1 = Dense(d_model, d_ffn, dtype=dtype)
+        self.linear2 = Dense(d_ffn, d_model, dtype=dtype)
+        self.norm2 = LayerNorm(d_model)
 
     def _level(self, x, p, valid):
         """Windowed attention over one level: x, p (B, h, w, C), valid

@@ -7,7 +7,14 @@ Pallas kernels ``_mha_box_kernel`` and, with ``prior=None``,
 ``_mha_kernel``); on a CPU tensor it runs ``dense_reference``, the plain
 PyTorch version of the same math. The kernel is compiled with ``nvcc``
 for sm_90a at first use into ``dtlr_tpu_torch/build/`` and bound with
-ctypes.
+ctypes (``_build.py``).
+
+Gradients: on CUDA the kernel runs inside ``RecomputeGrad``, whose
+backward recomputes the attention through ``dense_reference`` and
+differentiates that, as the JAX custom VJP ``_flash_mha_bwd`` does
+(dtlr_tpu/ops/flash_attn.py:348). Gradients reach q, k, v and the
+prior's float fields (cx, cy, ihw, ihh and gamma, which carries the
+learned ``ca_box_gamma``); key_bias, level, px and py take none.
 
 What bounds the kernel on an H100, and what its design does about it,
 is written at the top of the CUDA source.
@@ -17,19 +24,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
 import os
-import shutil
-import subprocess
-import time
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "box_attn.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
+from . import _build
+
+SOURCE = os.path.join(_build.CSRC, "box_attn.cu")
 HEAD_DIM = 32  # the kernel's compiled head dimension
 MAX_LEVELS = 8
 
@@ -112,16 +115,9 @@ def _check(name, t, shape, dtypes, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-              key_bias: torch.Tensor, prior: Optional[BoxPrior] = None) -> torch.Tensor:
-    """Fused attention: out (B, M, Q, D) fp32 from qh (B, M, Q, D), kh/vh
-    (B, M, S, D) in fp32 or bf16, additive key_bias (B, S) fp32 (-1e9 at
-    padded keys) and an optional BoxPrior. CPU tensors take
-    ``dense_reference``; CUDA tensors launch the kernel or raise."""
-    if qh.device.type == "cpu":
-        return dense_reference(qh, kh, vh, key_bias, prior)
-    if qh.device.type != "cuda":
-        raise ValueError(f"flash_mha runs on cuda or cpu, got {qh.device}")
+def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+            key_bias: torch.Tensor, prior: Optional[BoxPrior]) -> torch.Tensor:
+    """Check the CUDA inputs and launch the kernel once."""
     B, M, Q, D = qh.shape
     S = kh.shape[2]
     dev = qh.device
@@ -161,6 +157,52 @@ def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     return out
 
 
+#: positions of qh, kh, vh and the prior's cx, cy, ihw, ihh, gamma among
+#: (qh, kh, vh, key_bias, *BoxPrior): the inputs that take a gradient
+_DIFFERENTIABLE = (0, 1, 2, 4, 5, 6, 7, 11)
+
+
+class RecomputeGrad(torch.autograd.Function):
+    """``fwd(qh, kh, vh, key_bias, prior)`` (the kernel) in the forward; the
+    backward recomputes through ``dense_reference`` and differentiates it
+    (JAX's ``_flash_mha_bwd``). Call as
+    ``RecomputeGrad.apply(fwd, qh, kh, vh, key_bias, *prior)``."""
+
+    @staticmethod
+    def forward(ctx, fwd, qh, kh, vh, key_bias, *prior):
+        ctx.save_for_backward(qh, kh, vh, key_bias, *prior)
+        return fwd(qh, kh, vh, key_bias, BoxPrior(*prior) if prior else None)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        want = [i for i in _DIFFERENTIABLE
+                if i < len(saved) and ctx.needs_input_grad[1 + i]]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(i in want) for i, t in enumerate(saved)]
+            prior = BoxPrior(*leaves[4:]) if len(leaves) > 4 else None
+            out = dense_reference(*leaves[:4], prior)
+            grads = torch.autograd.grad(out, [leaves[i] for i in want], grad_out) if want else ()
+        result = [None] * len(saved)
+        for i, g in zip(want, grads):
+            result[i] = g
+        return (None, *result)
+
+
+def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+              key_bias: torch.Tensor, prior: Optional[BoxPrior] = None) -> torch.Tensor:
+    """Fused attention: out (B, M, Q, D) fp32 from qh (B, M, Q, D), kh/vh
+    (B, M, S, D) in fp32 or bf16, additive key_bias (B, S) fp32 (-1e9 at
+    padded keys) and an optional BoxPrior. CPU tensors take
+    ``dense_reference``; CUDA tensors launch the kernel, differentiably
+    (``RecomputeGrad``), or raise."""
+    if qh.device.type == "cpu":
+        return dense_reference(qh, kh, vh, key_bias, prior)
+    if qh.device.type != "cuda":
+        raise ValueError(f"flash_mha runs on cuda or cpu, got {qh.device}")
+    return RecomputeGrad.apply(_launch, qh, kh, vh, key_bias, *(prior or ()))
+
+
 #: launches of the CUDA kernel by instantiation; the plain version is
 #: never counted
 flash_mha.launches = dict.fromkeys(KERNELS, 0)
@@ -171,51 +213,15 @@ def reset_launches() -> None:
         flash_mha.launches[name] = 0
 
 
-# ------------------------------------------------------------------ build
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def library_path() -> str:
-    """Build output named by the source's hash, so an edited source is
-    rebuilt and an unchanged one is not."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libbox_attn_{digest}.so")
-
-
 def build_library() -> dict:
-    """Compile csrc/box_attn.cu for sm_90a into a shared library with a
-    plain C interface. Returns the path, the seconds nvcc took and what
-    ptxas reported (registers, shared memory, spills)."""
-    so = library_path()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
-    return {"path": so, "seconds": seconds, "ptxas": proc.stderr}
+    """Compile csrc/box_attn.cu (``_build.build``): the library's path,
+    nvcc's seconds and the ptxas report."""
+    return _build.build([SOURCE])[0]
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    so = library_path()
-    if not os.path.exists(so):
-        build_library()
-    lib = ctypes.CDLL(so)
+    lib = _build.load(SOURCE)
     fn = lib.dtlr_box_attn_fwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

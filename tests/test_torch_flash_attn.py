@@ -8,6 +8,7 @@ The CUDA kernel itself is held to the plain version on the card by
 tests/test_torch_kernels_gpu.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,3 +95,46 @@ def test_fully_masked_row_is_uniform():
                                jnp.asarray(key_bias), None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
     assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("prior", [True, False], ids=["box", "plain"])
+def test_recompute_grad_matches_jax_grad(prior):
+    """The backward of ``RecomputeGrad`` (the CUDA path's autograd
+    Function), driven on the CPU with ``dense_reference`` as its forward,
+    against ``jax.grad`` through ``dtlr_tpu.ops.flash_attn.flash_mha``
+    (Pallas kernel in interpret mode, custom VJP). Gradients of q, k, v
+    and of the prior's cx, cy, ihw, ihh and gamma; key_bias, level, px
+    and py take none. Tolerance 1e-4 of each gradient's scale: float32
+    on both sides, the same recompute summed in other orders."""
+    S = 145
+    qh, kh, vh, key_bias, ref, gamma = make_inputs(S, seed=2)
+    jp, tp = both_priors(S, ref, gamma)
+    w = np.random.default_rng(3).standard_normal(qh.shape).astype(np.float32)
+
+    def jax_loss(q, k, v, pr):
+        return jnp.sum(jfa.flash_mha(q, k, v, jnp.asarray(key_bias), pr, 128, True) * w)
+
+    args = [jnp.asarray(qh), jnp.asarray(kh), jnp.asarray(vh)]
+    if prior:
+        jq, jk, jv, jpr = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(*args, jp)
+        want = [jq, jk, jv, jpr.cx, jpr.cy, jpr.ihw, jpr.ihh, jpr.gamma]
+    else:
+        want = list(jax.grad(lambda q, k, v: jax_loss(q, k, v, None), argnums=(0, 1, 2))(*args))
+
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (qh, kh, vh)]
+    kb = torch.from_numpy(key_bias).requires_grad_()
+    fields = []
+    if prior:
+        fields = [t.clone().requires_grad_(t.is_floating_point()) for t in tp]
+        leaves += [fields[i] for i in (0, 1, 2, 3, 7)]  # cx, cy, ihw, ihh, gamma
+    launches = dict(tfa.flash_mha.launches)
+    out = tfa.RecomputeGrad.apply(tfa.dense_reference, *leaves[:3], kb, *fields)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert tfa.flash_mha.launches == launches
+    assert kb.grad is None
+    assert all(fields[i].grad is None for i in (4, 5, 6) if prior)  # level, px, py
+    for name, got, exp in zip(("q", "k", "v", "cx", "cy", "ihw", "ihh", "gamma"),
+                              leaves, want):
+        exp = np.asarray(exp)
+        np.testing.assert_allclose(got.grad.numpy(), exp, rtol=0, err_msg=name,
+                                   atol=1e-4 * max(1.0, float(np.abs(exp).max())))

@@ -27,7 +27,8 @@ from dtlr_tpu_torch.weights import load_into
 
 TOL = 1e-4
 TINY = DinoConfig(num_queries=24, hidden_dim=32, nheads=4, enc_layers=2,
-                  dec_layers=2, dim_feedforward=64, encoder_win=8)
+                  dec_layers=2, dim_feedforward=64, encoder_win=8,
+                  compute_dtype="float32")
 NUM_CLASSES = 12
 
 

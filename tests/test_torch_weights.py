@@ -133,3 +133,57 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.main(["--params", PARAMS, "--lines", "unused.npz"])
     assert next(build_dino(TINY, NUM_CLASSES, device="cpu").parameters()).device.type == "cpu"
+
+
+#: every checkpoint the repository ships; all share the flagship recipe's
+#: geometry and differ in classes (65, 166, 7356) and label book size
+SHIPPED = ("hwdb_ft_params", "hwdb_ft_params_ema", "hwdb_v3_20k", "hwdb_v3_20k_ema",
+           "r4ft_params", "r4run_params", "r4run_params_ema", "r5_bigscale_1k",
+           "r5_bigscale_5k")
+
+
+def test_shipped_checkpoints_are_listed():
+    names = sorted(f[:-4] for f in os.listdir(os.path.join(REPO, "artifacts"))
+                   if f.endswith(".npz"))
+    assert tuple(names) == SHIPPED
+
+
+@pytest.mark.parametrize("name", SHIPPED)
+def test_shipped_checkpoint_loads(name):
+    """Strict load (no leaf missing, unused or misshapen) with the class
+    count and the label encoder's rows read from the checkpoint."""
+    path = os.path.join(REPO, "artifacts", f"{name}.npz")
+    tree = params_from_npz(path)
+    model = evaluate.load_model(path, device="cpu")
+    assert model.num_classes == tree["params/class_embed/fc/kernel"].shape[-1]
+    assert tuple(model.label_enc.shape) == tree["params/label_enc"].shape
+    assert model.cfg.dn_labelbook_size == tree["params/label_enc"].shape[0] - 1
+    assert model.cfg.compute_dtype == "bfloat16"
+
+
+@pytest.mark.slow
+def test_port_reads_fixture_with_hwdb_checkpoint_like_jax():
+    """The Chinese checkpoint (7356 classes, label book 7356) on the CPU
+    reads the fixture's lines to the same labels as the JAX package in
+    float32. The HWDB charset lives outside the repository, so labels
+    are compared through a stand-in charset with one distinct character
+    per class. Gates as the flagship's float32 test: labels exact, and
+    per query boxes and max logits within 1e-3 on the lines whose
+    selection is JAX's, any other selection from a score gap under 1e-3."""
+    from test_torch_smoke_fixture import FIXTURE, NMS, TH, jax_reading
+
+    path = os.path.join(REPO, "artifacts", "hwdb_ft_params.npz")
+    cfg = os.path.join(REPO, "outputs", "hwdb_ft", "config_cfg.py")
+    lines = evaluate.load_lines(FIXTURE)
+    lines["charset"] = [chr(0x4E00 + i) for i in range(7356)]
+    ref = jax_reading(lines["images"], lines["valid_hw"], lines["charset"], path, cfg,
+                      batch_size=4)
+    model = evaluate.load_model(path, device="cpu", compute_dtype="float32")
+    res = evaluate.read_lines(model, lines, TH, NMS, batch_size=2)
+    a = evaluate.agreement(res, ref)
+    assert res["greedy"] == ref["jax_greedy"], a
+    assert res["nms"] == ref["jax_nms"], a
+    assert a["lines_compared"] >= len(lines["texts"]) // 2, a
+    assert a["max_swap_score_gap"] < 1e-3, a
+    assert a["max_pred_boxes_err"] < 1e-3, a
+    assert a["max_logit_err"] < 1e-3, a
