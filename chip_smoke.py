@@ -6,11 +6,18 @@
 Phases, each printing one JSON line with its seconds:
   device   the card, its power limit, TF32 off for matmuls and convolutions
   build    one nvcc per CUDA source (dtlr_tpu_torch/csrc/box_attn.cu and
-           row_gather.cu), all started together, for sm_90a (ptxas report)
+           row_gather.cu), all started together, for sm_90a (ptxas report:
+           registers, shared memory, spills), and the count of tensor-core
+           instructions (HMMA, HGMMA) in each attention kernel's SASS
   kernels  both instantiations of the box-prior attention kernel against
            their plain PyTorch version on the card, at the decoder's shapes,
-           in fp32 and bf16, and the row gather at the probe's shapes; times
-           of each kernel, its plain version, one library call and the bound
+           in fp32 and bf16, on contiguous heads and on strided views built
+           as the decoder builds them, a fully masked row (uniform and
+           finite), and the row gather at the probe's shapes; times of each
+           kernel, its plain version and one library call (``ms``: events
+           around 20 back-to-back calls, which the host's per-call work
+           bounds where it exceeds the card's; ``graph_ms``: the same calls
+           replayed from a CUDA graph, the card alone) and the bound
   grad     gradients through the attention kernel's autograd Function
            (q, k, v and the prior's cx, cy, ihw, ihh, gamma) against the
            plain version's autograd gradients, at the decoder's shapes
@@ -47,6 +54,15 @@ LINES_BF16 = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_lines_bf16.np
 # for the inputs' type
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 MEM_BYTES_PER_S = 3.35e12
+# the attention's per-score floor at D=32: besides its two products each
+# score costs fp32 instructions on the CUDA cores (scale and bias, the
+# prior's five, max, exponent argument, row sum: 9 with the prior, 4
+# without) at 128 lanes x 132 SMs x 1.98 GHz, and one ex2 on the SFUs at
+# 16 per SM per clock; the floor is the larger of the two (published
+# rates, no measurement)
+LANE_OPS_PER_S = 128 * 132 * 1.98e9
+SFU_PER_S = 16 * 132 * 1.98e9
+OPS_PER_SCORE = {True: 9, False: 4}
 
 # decoder geometry of the flagship: B lines of 8 heads x 32, 900 queries;
 # keys of the 128x1024 eval bucket (S=2720) and of the 128x1344 bench
@@ -91,29 +107,86 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=25, warmup=3):
-    """Median of ``reps`` single calls timed with CUDA events."""
+def cuda_ms(fn, calls=20, runs=5, warmup=3):
+    """Milliseconds per call: one CUDA event pair around ``calls``
+    back-to-back calls, divided by ``calls``; the median of ``runs`` such
+    timings after ``warmup`` calls. Back to back, the host's work for one
+    call (checks, allocation, the launch itself) overlaps the device's
+    work for the one before, as it does on the forward path; around a
+    single call the device would wait for all of it."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
-def attention_inputs(S, dtype, prior, gen):
+def graph_ms(fn, calls=20, runs=5):
+    """The card's milliseconds per call alone: ``calls`` calls captured in
+    one CUDA graph, replayed between one event pair, median of ``runs``
+    replays. The host's per-call work runs once, at capture; what is left
+    is the device's time and the graph's launch gaps. Where that work
+    exceeds the device's, ``cuda_ms`` reads the host and this the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def host_us(fn, calls=200, runs=3):
+    """Host microseconds per call: ``calls`` calls enqueued without a sync,
+    timed on the host clock, median of ``runs``. Where this exceeds the
+    card's time per call, back-to-back event timing reads it."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def attention_inputs(S, dtype, prior, gen, strided=False):
+    """Heads (B, M, L, D), contiguous or, with ``strided``, as the decoder
+    builds them: (B, L, M*D) projections viewed as (B, L, M, D) and
+    transposed, so rows are M*D elements apart and heads D."""
     from dtlr_tpu_torch.ops.flash_attn import make_box_prior
 
     dev = "cuda"
-    qh = torch.randn(B, M, Q, D, generator=gen, device=dev).to(dtype)
-    kh = torch.randn(B, M, S, D, generator=gen, device=dev).to(dtype)
-    vh = torch.randn(B, M, S, D, generator=gen, device=dev).to(dtype)
+    if strided:
+        heads = lambda n: (torch.randn(B, n, M * D, generator=gen, device=dev).to(dtype)
+                           .view(B, n, M, D).transpose(1, 2))
+    else:
+        heads = lambda n: torch.randn(B, M, n, D, generator=gen, device=dev).to(dtype)
+    qh, kh, vh = heads(Q), heads(S), heads(S)
     pad = torch.rand(B, S, generator=gen, device=dev) < 0.2
     key_bias = torch.zeros(B, S, device=dev).masked_fill(pad, -1e9)
     box = None
@@ -137,6 +210,14 @@ def bound(qh, kh, vh, key_bias, box):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def score_floor(qh, kh, box):
+    """Least time for the per-score work outside the products (see
+    OPS_PER_SCORE): the CUDA cores' share against the SFUs' share."""
+    scores = qh.shape[0] * qh.shape[1] * qh.shape[2] * kh.shape[2]
+    return 1e3 * max(scores * OPS_PER_SCORE[box is not None] / LANE_OPS_PER_S,
+                     scores / SFU_PER_S)
+
+
 def sdpa_call(qh, kh, vh, key_bias, box):
     """One scaled_dot_product_attention call with the additive bias
     materialized: the library yardstick, never used by the port."""
@@ -157,15 +238,19 @@ def phase_kernels(card):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the self-attention's shape (S = Q = 900, no padding) is where the
-    # main path runs the no-prior kernel
-    configs = [("mha_box", S, dt) for S in (2720, 3570)
+    # main path runs the no-prior kernel; S = 3570's levels start at keys
+    # 0, 2688, 3360 and 3528, so two of its 64-key tiles mix levels; the
+    # strided rows take the decoder's projection views (its layout)
+    configs = [("mha_box", S, dt, False) for S in (2720, 3570)
                for dt in (torch.float32, torch.bfloat16)]
-    configs += [("mha", S, dt) for S in (900, 2720, 3570)
+    configs += [("mha", S, dt, False) for S in (900, 2720, 3570)
+                for dt in (torch.float32, torch.bfloat16)]
+    configs += [(name, S, dt, True) for name, S in (("mha_box", 2720), ("mha", 900))
                 for dt in (torch.float32, torch.bfloat16)]
     rows = []
-    for name, S, dtype in configs:
+    for name, S, dtype, strided in configs:
         prior = name == "mha_box"
-        args = attention_inputs(S, dtype, prior, gen)
+        args = attention_inputs(S, dtype, prior, gen, strided)
         if S == Q:  # the self-attention pads no key
             args = args[:3] + (torch.zeros_like(args[3]), None)
         out = flash_mha(*args)
@@ -175,16 +260,57 @@ def phase_kernels(card):
         ok = math.isfinite(err) and err <= TOL[dtype]
         bound_ms, bound_by = bound(*args)
         row = {"name": name, "S": S, "dtype": str(dtype).split(".")[1],
+               "layout": "strided" if strided else "contiguous",
                "max_abs_err": err, "tol": TOL[dtype],
                "ms": cuda_ms(lambda: flash_mha(*args)),
                "plain_ms": cuda_ms(lambda: dense_reference(*args)),
                "library_ms": cuda_ms(sdpa_call(*args)),
-               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+               "graph_ms": graph_ms(lambda: flash_mha(*args)),
+               "host_us": host_us(lambda: flash_mha(*args)),
+               "plain_graph_ms": graph_ms(lambda: dense_reference(*args)),
+               "library_graph_ms": graph_ms(sdpa_call(*args)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "score_floor_ms": score_floor(args[0], args[1], args[4]), "card": card}
         rows.append(row)
         if not ok:
             emit({"phase": "kernels", "failed": row})
             raise AssertionError(f"{name} S={S} {dtype}: max abs err {err} > {TOL[dtype]}")
         del args, out, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def masked_rows():
+    """Every key of line 0 carries -1e9: its softmax is uniform, so each of
+    its outputs is the mean of the values, finite, in both
+    instantiations and dtypes (the prior with gamma 0, which keeps it
+    uniform), at S = 2720 on the decoder's strided views."""
+    from dtlr_tpu_torch.ops.flash_attn import dense_reference, flash_mha
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for name, dtype in [(n, dt) for n in ("mha_box", "mha")
+                        for dt in (torch.float32, torch.bfloat16)]:
+        qh, kh, vh, key_bias, box = attention_inputs(2720, dtype, name == "mha_box", gen,
+                                                     strided=True)
+        key_bias[0] = -1e9
+        if box is not None:
+            box = box._replace(gamma=torch.zeros_like(box.gamma))
+        out = flash_mha(qh, kh, vh, key_bias, box)
+        torch.cuda.synchronize()
+        mean = vh[0].float().mean(1, keepdim=True).expand(M, Q, D)
+        row = {"name": name, "dtype": str(dtype).split(".")[1], "S": 2720,
+               "finite": bool(torch.isfinite(out).all()),
+               "uniform_err": float((out[0] - mean).abs().max()),
+               "max_abs_err": float((out - dense_reference(qh, kh, vh, key_bias, box))
+                                    .abs().max()),
+               "tol": TOL[dtype]}
+        rows.append(row)
+        if not (row["finite"] and row["uniform_err"] <= TOL[dtype]
+                and row["max_abs_err"] <= TOL[dtype]):
+            emit({"phase": "kernels", "failed": row})
+            raise AssertionError(f"{name} {dtype}: a fully masked row is not uniform")
+        del qh, kh, vh, out
         torch.cuda.empty_cache()
     return rows
 
@@ -211,12 +337,12 @@ def phase_gather(card):
     torch.cuda.synchronize()
     err = float((out - row_gather_reference(val, idx)).abs().max())
     bound_ms, bound_by = gather_bound(val, idx)
-    lib, stream = gather.load_library(), torch.cuda.current_stream().cuda_stream
+    lib = gather.load_library()
 
     def launch_only():  # the kernel without the wrapper's checks (not counted)
         out = torch.empty_like(val[:GATHER_Q])
         lib.dtlr_row_gather(val.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                            GATHER_S, GATHER_C, GATHER_Q, stream)
+                            GATHER_S, GATHER_C, GATHER_Q, torch.cuda.current_stream().cuda_stream)
 
     row = {"name": "row_gather", "S": GATHER_S, "C": GATHER_C, "Q": GATHER_Q,
            "dtype": "float32", "max_abs_err": err, "tol": 0.0,
@@ -226,6 +352,10 @@ def phase_gather(card):
            "plain_ms": cuda_ms(lambda: row_gather_reference(val, idx)),
            # the library yardstick: index_select and the multiply, two launches
            "library_ms": cuda_ms(lambda: torch.index_select(val, 0, idx) * 2),
+           # the card alone (the wrapper's sync cannot be captured: the launch)
+           "launch_only_graph_ms": graph_ms(launch_only),
+           "plain_graph_ms": graph_ms(lambda: row_gather_reference(val, idx)),
+           "library_graph_ms": graph_ms(lambda: torch.index_select(val, 0, idx) * 2),
            "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
     if err != 0.0:
         emit({"phase": "kernels", "failed": row})
@@ -337,7 +467,8 @@ def read_once(card, compute_dtype, ref_path):
                              "JAX package's")
 
     images, valid_hw = lines["images"], lines["valid_hw"]
-    fwd_ms = cuda_ms(lambda: forward_lines(model, images, valid_hw), reps=10, warmup=2)
+    fwd_ms = cuda_ms(lambda: forward_lines(model, images, valid_hw), calls=1, runs=10,
+                     warmup=2)
     record.update({"forward_ms_per_batch": fwd_ms, "batch": len(images),
                    "lines_per_s": len(images) / (fwd_ms / 1e3), "card": card})
     del model
@@ -380,16 +511,28 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build([flash_attn.SOURCE, gather.SOURCE])
-    flash_attn.load_library()
+    attn_lib = flash_attn.load_library()
     gather.load_library()
+    # tensor-core instructions per attention kernel: the bf16 one must have some
+    sass = {fn: n for fn, n in _build.sass_counts(built[0]["path"]).items() if "box_attn" in fn}
     emit({"phase": "build",
           "nvcc_seconds": {os.path.basename(b["source"]): b["seconds"] for b in built},
-          "ptxas": [l for b in built for l in b["ptxas"].splitlines() if "registers" in l],
+          "ptxas": [l.strip() for b in built for l in b["ptxas"].splitlines()
+                    if "entry function" in l or "registers" in l or "spill" in l],
+          # the bf16 kernel's shared memory is dynamic, outside ptxas's report
+          "bf16_dynamic_smem_bytes": {
+              f"mha_box, L={len(LEVELS[2720])}": attn_lib.dtlr_box_attn_bf16_smem(1, len(LEVELS[2720])),
+              "mha": attn_lib.dtlr_box_attn_bf16_smem(0, 1)},
+          "sass_tensor_core_instructions": sass,
           "seconds": time.perf_counter() - t0})
+    bf16_kernels = [n for fn, n in sass.items() if "bf16" in fn]
+    if len(bf16_kernels) != 2 or not all(n["HMMA"] + n["HGMMA"] > 0 for n in bf16_kernels):
+        raise AssertionError(f"the bf16 attention kernels do not run on the tensor cores: {sass}")
 
     t0 = time.perf_counter()
     rows = phase_kernels(card) + [phase_gather(card)]
-    emit({"phase": "kernels", "rows": rows, "seconds": time.perf_counter() - t0})
+    emit({"phase": "kernels", "rows": rows, "masked_rows": masked_rows(),
+          "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
     grad_rows = phase_grad(card)
@@ -407,14 +550,16 @@ def main() -> int:
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
           "seconds": time.perf_counter() - t0})
 
-    # each kernel at its main path's shape and dtype: the attention in the
-    # recipe's bfloat16 reading, the gather in the probe
-    main_shape = {"mha_box": (2720, "bfloat16"), "mha": (900, "bfloat16"),
-                  "row_gather": (GATHER_S, "float32")}
+    # each kernel at its main path's shape, dtype and layout: the attention
+    # in the recipe's bfloat16 reading on the decoder's strided views, the
+    # gather in the probe
+    main_shape = {"mha_box": (2720, "bfloat16", "strided"), "mha": (900, "bfloat16", "strided"),
+                  "row_gather": (GATHER_S, "float32", None)}
     main_launches = {**launches["bfloat16"], **probe_launches}
     kernels = []
     for name in (*flash_attn.KERNELS, *gather.KERNELS):
-        row = next(r for r in rows if (r["name"], r["S"], r["dtype"]) == (name, *main_shape[name]))
+        row = next(r for r in rows if (r["name"], r["S"], r["dtype"], r.get("layout"))
+                   == (name, *main_shape[name]))
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": main_launches[name],
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",

@@ -123,11 +123,14 @@ class MultiHeadAttention(nn.Module):
         S = k.shape[1]
         M = self.n_heads
         D = C // M
-        qh = self.q_proj(q).view(B, Lq, M, D).transpose(1, 2)  # (B, M, Q, D)
+        # (B, M, Q, D) views of the projections' (B, Q, M, D) rows: the
+        # kernel reads them in place through their strides
+        qh = self.q_proj(q).view(B, Lq, M, D).transpose(1, 2)
         kh = self.k_proj(k).view(B, S, M, D).transpose(1, 2)
         vh = self.v_proj(v).view(B, S, M, D).transpose(1, 2)
         if key_bias is None:
             key_bias = torch.zeros(B, S, dtype=torch.float32, device=q.device)
-        out = flash_mha(qh.contiguous(), kh.contiguous(), vh.contiguous(),
-                        key_bias, box_prior)
+        out = flash_mha(qh, kh, vh, key_bias, box_prior)
+        # on CUDA ``out`` is laid out as (B, Q, M, D) and the cast keeps that
+        # layout, so the transpose and reshape below are views
         return self.out_proj(out.to(self.compute_dtype).transpose(1, 2).reshape(B, Lq, C))

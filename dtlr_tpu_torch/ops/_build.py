@@ -21,15 +21,21 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
+    """A CUDA toolkit program: $CUDA_HOME/bin (default /usr/local/cuda),
+    else the PATH."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
+    path = os.path.join(cuda_home, "bin", name)
     if os.path.exists(path):
         return path
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH")
     return found
+
+
+def _nvcc() -> str:
+    return _tool("nvcc")
 
 
 def library_path(source: str) -> str:
@@ -68,6 +74,30 @@ def build(sources: Sequence[str]) -> List[Dict]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return results
+
+
+def sass_counts(library: str, opcodes: Sequence[str] = ("HMMA", "HGMMA")) -> Dict[str, Dict[str, int]]:
+    """Per kernel of a built library (mangled name), how many of its SASS
+    instructions start with each opcode, read with ``cuobjdump -sass``:
+    HMMA for mma.sync on the tensor cores, HGMMA for wgmma."""
+    sass = subprocess.run([_tool("cuobjdump"), "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = counts.setdefault(line.split("Function :", 1)[1].strip(),
+                                        dict.fromkeys(opcodes, 0))
+        elif current is not None and "*/" in line:
+            # "/*0130*/   HMMA.16816.F32.BF16 R8, R4, R2, RZ ;  /* ... */"
+            text = line.split("*/", 1)[1].strip()
+            op = text.split()[0] if text else ""
+            if op.startswith("@"):  # predicated: the opcode follows the guard
+                op = text.split()[1] if len(text.split()) > 1 else ""
+            base = op.split(".")[0]
+            if base in current:
+                current[base] += 1
+    return counts
 
 
 @functools.cache

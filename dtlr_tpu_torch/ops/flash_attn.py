@@ -5,9 +5,12 @@ dtlr_tpu/ops/flash_attn.py).
 launches the hand-written kernel of ``csrc/box_attn.cu`` (the port of the
 Pallas kernels ``_mha_box_kernel`` and, with ``prior=None``,
 ``_mha_kernel``); on a CPU tensor it runs ``dense_reference``, the plain
-PyTorch version of the same math. The kernel is compiled with ``nvcc``
-for sm_90a at first use into ``dtlr_tpu_torch/build/`` and bound with
-ctypes (``_build.py``).
+PyTorch version of the same math. bf16 inputs run on the tensor cores,
+fp32 inputs on the CUDA cores. The kernel reads q, k and v through their
+batch, head and row strides (``kernel_strides``), so the decoder hands it
+its projections without copies. It is compiled with ``nvcc`` for sm_90a
+at first use into ``dtlr_tpu_torch/build/`` and bound with ctypes
+(``_build.py``).
 
 Gradients: on CUDA the kernel runs inside ``RecomputeGrad``, whose
 backward recomputes the attention through ``dense_reference`` and
@@ -104,29 +107,57 @@ def dense_reference(qh, kh, vh, key_bias, prior: Optional[BoxPrior]):
     return logits.softmax(-1) @ vh.float()
 
 
-def _check(name, t, shape, dtypes, device):
+def _check(name, t, shape, dtypes, device, contiguous=True):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def kernel_strides(name: str, t: torch.Tensor, shape, dtypes, device) -> Tuple[int, int, int]:
+    """Check one of the kernel's 4-d operands (qh, kh, vh or the output):
+    device, dtype and shape, a unit stride on D, a 16-byte aligned start,
+    and batch, head and row strides that are whole multiples of 16 bytes
+    (8 bf16 or 4 fp32 elements) wherever the axis has more than one entry,
+    so that every row starts 16-byte aligned, and rows of one (batch, head)
+    that span less than 2^31 elements (the kernel's 32-bit row offsets).
+    Returns those three element strides; raises ValueError (TypeError for
+    the dtype) otherwise."""
+    _check(name, t, shape, dtypes, device, contiguous=False)
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous in its last axis, got stride {t.stride(-1)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+    unit = 16 // t.element_size()
+    for axis, what in enumerate(("batch", "head", "row")):
+        if t.shape[axis] > 1 and t.stride(axis) % unit:
+            raise ValueError(f"{name}'s {what} stride {t.stride(axis)} is not a multiple "
+                             f"of {unit} elements")
+    if (t.shape[2] - 1) * t.stride(2) + t.shape[3] >= 2 ** 31:
+        raise ValueError(f"{name}'s rows span 2^31 elements or more")
+    return t.stride(0), t.stride(1), t.stride(2)
 
 
 def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
             key_bias: torch.Tensor, prior: Optional[BoxPrior]) -> torch.Tensor:
-    """Check the CUDA inputs and launch the kernel once."""
+    """Check the CUDA inputs and launch the kernel once. qh/kh/vh may be
+    strided views (the decoder's (B, S, M, D) projections transposed);
+    the result is a (B, M, Q, D) view of a (B, Q, M, D) fp32 tensor."""
     B, M, Q, D = qh.shape
     S = kh.shape[2]
     dev = qh.device
     if D != HEAD_DIM:
         raise ValueError(f"the kernel is compiled for head dim {HEAD_DIM}, got {D}")
     io_types = (torch.float32, torch.bfloat16)
-    _check("qh", qh, (B, M, Q, D), io_types, dev)
-    _check("kh", kh, (B, M, S, D), (qh.dtype,), dev)
-    _check("vh", vh, (B, M, S, D), (qh.dtype,), dev)
+    out = torch.empty((B, Q, M, D), dtype=torch.float32, device=dev).transpose(1, 2)
+    strides = (kernel_strides("qh", qh, (B, M, Q, D), io_types, dev)
+               + kernel_strides("kh", kh, (B, M, S, D), (qh.dtype,), dev)
+               + kernel_strides("vh", vh, (B, M, S, D), (qh.dtype,), dev)
+               + kernel_strides("out", out, (B, M, Q, D), (torch.float32,), dev))
     _check("key_bias", key_bias, (B, S), (torch.float32,), dev)
     f32 = (torch.float32,)
     if prior is not None:
@@ -143,14 +174,13 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     else:
         L = 1
         box_ptrs = [None] * 8
-    out = torch.empty((B, M, Q, D), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dtlr_box_attn_fwd(
             qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), key_bias.data_ptr(),
             *box_ptrs, out.data_ptr(), B, M, Q, S, D, L,
-            int(qh.dtype == torch.bfloat16), int(prior is not None), stream)
+            int(qh.dtype == torch.bfloat16), int(prior is not None),
+            (ctypes.c_longlong * 12)(*strides), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"box_attn kernel launch failed with CUDA error {err}")
     flash_mha.launches["mha_box" if prior is not None else "mha"] += 1
@@ -195,12 +225,17 @@ def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     (B, M, S, D) in fp32 or bf16, additive key_bias (B, S) fp32 (-1e9 at
     padded keys) and an optional BoxPrior. CPU tensors take
     ``dense_reference``; CUDA tensors launch the kernel, differentiably
-    (``RecomputeGrad``), or raise."""
+    (``RecomputeGrad``), or raise. On CUDA qh/kh/vh may be strided views
+    (``kernel_strides`` says which), and the result is a view whose
+    storage is laid out as (B, Q, M, D)."""
     if qh.device.type == "cpu":
         return dense_reference(qh, kh, vh, key_bias, prior)
     if qh.device.type != "cuda":
         raise ValueError(f"flash_mha runs on cuda or cpu, got {qh.device}")
-    return RecomputeGrad.apply(_launch, qh, kh, vh, key_bias, *(prior or ()))
+    inputs = (qh, kh, vh, key_bias, *(prior or ()))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return RecomputeGrad.apply(_launch, *inputs)
+    return _launch(qh, kh, vh, key_bias, prior)  # nothing to differentiate
 
 
 #: launches of the CUDA kernel by instantiation; the plain version is
@@ -223,6 +258,9 @@ def build_library() -> dict:
 def load_library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.dtlr_box_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.dtlr_box_attn_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dtlr_box_attn_bf16_smem.restype = ctypes.c_int
     return lib

@@ -5,7 +5,10 @@ imports JAX): ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py -q
 Elsewhere every test skips: a CUDA kernel has no CPU mode.
 
 Both instantiations, fp32 and bf16 inputs, ragged Q and S (the last key
-tile and the last query tile partly filled), 20% of keys padded.
+tile and the last query tile partly filled; Q=900 leaves 4 rows in the
+last 64-query tile), 20% of keys padded; S=3570, whose levels start at
+keys 2688, 3360 and 3528, so two 64-key tiles mix levels; the decoder's
+strided (B, S, M, D) projection views; a fully masked row.
 Tolerances: 1e-4 in fp32 (summation order) and 2e-2 with bf16 inputs,
 as tests/test_flash_attn.py holds the Pallas kernel. Gradients through
 the kernel path recompute through the plain version, so they match its
@@ -23,7 +26,8 @@ from dtlr_tpu_torch.ops import gather
 B, M, D = 2, 4, 32
 SPATIAL = {200: ((8, 10), (4, 10), (2, 20), (2, 20)),
            145: ((8, 13), (4, 7), (2, 5), (1, 3)),
-           2720: ((16, 128), (8, 64), (4, 32), (2, 16))}
+           2720: ((16, 128), (8, 64), (4, 32), (2, 16)),
+           3570: ((16, 168), (8, 84), (4, 42), (2, 21))}
 
 
 @pytest.fixture
@@ -34,10 +38,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def inputs(S, Q, dtype, dev, seed=0):
+def inputs(S, Q, dtype, dev, seed=0, strided=False):
+    """Heads (B, M, L, D): contiguous, or with ``strided`` the (B, M, L, D)
+    view of a (B, L, M*D) projection, as the decoder passes them."""
     rng = np.random.default_rng(seed)
     t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
-    qh, kh, vh = (x.to(dtype) for x in (t(B, M, Q, D), t(B, M, S, D), t(B, M, S, D)))
+    if strided:
+        qh, kh, vh = (t(B, n, M * D).to(dtype).view(B, n, M, D).transpose(1, 2)
+                      for n in (Q, S, S))
+    else:
+        qh, kh, vh = (x.to(dtype) for x in (t(B, M, Q, D), t(B, M, S, D), t(B, M, S, D)))
     pad = torch.from_numpy(rng.uniform(size=(B, S)) < 0.2).to(dev)
     key_bias = torch.zeros(B, S, device=dev).masked_fill(pad, -1e9)
     ref = torch.from_numpy(rng.uniform(0.05, 0.9, (B, Q, 4, 4)).astype(np.float32)).to(dev)
@@ -48,7 +58,7 @@ def inputs(S, Q, dtype, dev, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("S,Q", [(200, 70), (145, 70), (2720, 900)])
+@pytest.mark.parametrize("S,Q", [(200, 70), (145, 70), (2720, 900), (3570, 900)])
 def test_kernel_matches_plain(cuda, S, Q, dtype, tol):
     qh, kh, vh, key_bias, prior = inputs(S, Q, dtype, cuda)
     for name, pr in (("mha_box", prior), ("mha", None)):
@@ -56,6 +66,43 @@ def test_kernel_matches_plain(cuda, S, Q, dtype, tol):
         got = tfa.flash_mha(qh, kh, vh, key_bias, pr)
         torch.cuda.synchronize()
         assert tfa.flash_mha.launches[name] == before + 1
+        want = tfa.dense_reference(qh, kh, vh, key_bias, pr)
+        assert float((got - want).abs().max()) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,Q", [(145, 70), (2720, 900), (3570, 900)])
+def test_kernel_reads_strided_views(cuda, S, Q, dtype, tol):
+    """The decoder's (B, S, M, D) projections, transposed, without copies;
+    the result is laid out as (B, Q, M, D)."""
+    qh, kh, vh, key_bias, prior = inputs(S, Q, dtype, cuda, seed=4, strided=True)
+    assert not kh.is_contiguous()
+    for name, pr in (("mha_box", prior), ("mha", None)):
+        got = tfa.flash_mha(qh, kh, vh, key_bias, pr)
+        torch.cuda.synchronize()
+        assert got.transpose(1, 2).is_contiguous()
+        want = tfa.dense_reference(qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                                   key_bias, pr)
+        assert float((got - want).abs().max()) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+def test_fully_masked_row_is_uniform(cuda, dtype, tol):
+    """Every key of line 0 carries -1e9: its output is the mean of the
+    values, finite (the prior with gamma 0 keeps the row uniform)."""
+    qh, kh, vh, key_bias, prior = inputs(2720, 900, dtype, cuda, seed=5, strided=True)
+    key_bias[0] = -1e9
+    prior = prior._replace(gamma=torch.zeros_like(prior.gamma))
+    mean = vh[0].float().mean(1, keepdim=True).expand(M, 900, D)
+    for name, pr in (("mha_box", prior), ("mha", None)):
+        got = tfa.flash_mha(qh, kh, vh, key_bias, pr)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), name
+        assert float((got[0] - mean).abs().max()) <= tol, name
         want = tfa.dense_reference(qh, kh, vh, key_bias, pr)
         assert float((got - want).abs().max()) <= tol, name
 
@@ -72,6 +119,20 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         tfa.flash_mha(qh, kh.bfloat16(), vh, key_bias)
     with pytest.raises(ValueError, match="on cpu"):
         tfa.flash_mha(qh, kh, vh, key_bias.cpu())
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_misaligned_rows(cuda):
+    """bf16 rows must start 16-byte aligned: a (B, S, M*D + 4) buffer's
+    first M*D columns are refused, its 16-byte aligned copy is not."""
+    qh, kh, vh, key_bias, prior = inputs(145, 70, torch.bfloat16, cuda)
+    wide = torch.zeros(B, 145, M * D + 4, dtype=torch.bfloat16, device=cuda)
+    bad = wide[..., :M * D].unflatten(-1, (M, D)).transpose(1, 2)
+    with pytest.raises(ValueError, match="is not a multiple of"):
+        tfa.flash_mha(qh, bad, vh, key_bias, prior)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(kh.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        tfa.flash_mha(qh, flat[1:].view(kh.shape), vh, key_bias, prior)
 
 
 @pytest.mark.gpu
