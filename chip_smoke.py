@@ -13,11 +13,13 @@ Phases, each printing one JSON line with its seconds:
            their plain PyTorch version on the card, at the decoder's shapes,
            in fp32 and bf16, on contiguous heads and on strided views built
            as the decoder builds them, a fully masked row (uniform and
-           finite), and the row gather at the probe's shapes; times of each
-           kernel, its plain version and one library call (``ms``: events
-           around 20 back-to-back calls, which the host's per-call work
-           bounds where it exceeds the card's; ``graph_ms``: the same calls
-           replayed from a CUDA graph, the card alone) and the bound
+           finite), and the row gather at the probe's shapes (an index out
+           of range trips its device-side assert, checked in a child
+           process); times of each kernel, its plain version and one
+           library call (``ms``: events around 20 back-to-back calls, which
+           the host's per-call work bounds where it exceeds the card's;
+           ``graph_ms``: the same calls replayed from a CUDA graph, the card
+           alone) and the bound
   grad     gradients through the attention kernel's autograd Function
            (q, k, v and the prior's cx, cy, ihw, ihh, gamma) against the
            plain version's autograd gradients, at the decoder's shapes
@@ -27,6 +29,18 @@ Phases, each printing one JSON line with its seconds:
            against the JAX package's float32 reading, and in the recipe's
            bfloat16, held against its bf16 reading (smoke_lines_bf16.npz);
            launch counts per forward and lines/s for each
+  train    CTC finetuning with the recipe's trainer (dtlr_tpu_torch.train.engine,
+           full-model optimizer) from the flagship checkpoint on the eight
+           lines: the first step in float32 and in bfloat16 against the JAX
+           package's first step (dtlr_tpu_torch/assets/smoke_train.npz: the
+           loss and gradient norms, per line and for the batch), 6 launches
+           of each attention instantiation and 12 recomputing backwards per
+           step, ca_box_gamma's gradient in every decoder layer; then in
+           bfloat16 2 warm-up and 10 timed steps (finite losses, none
+           skipped, the weights move), ms per step, lines/s, peak memory,
+           the step split into forward, backward and update, one profiled
+           step's top operators; and the trained weights through an npz
+           into a fresh model that reads the lines to the same strings
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel, the card's name
 and power limit from nvidia-smi, and as the last line
@@ -34,6 +48,7 @@ and power limit from nvidia-smi, and as the last line
 Needs torch, numpy and the repository; no network and no JAX.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -82,6 +97,35 @@ REPLACES = {"mha_box": "dtlr_tpu/ops/flash_attn.py:186",
             "row_gather": "scripts/pallas_probe.py:22"}
 # the probe's gather: val (S, C) float32, idx (Q,) int32
 GATHER_S, GATHER_C, GATHER_Q = 1024, 64, 128
+# the train phase: JAX's first CTC step on the fixture lines (written on the
+# CPU by tests/test_torch_smoke_train.py), the leaves whose gradient norms
+# are compared (JAX name: port name), and the steps timed after warm-up
+SMOKE_TRAIN = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_train.npz")
+TRAIN_LEAVES = {"params/class_embed/fc/kernel": "class_embed.fc.weight",
+                "params/transformer/decoder_layer_0/ca_box_gamma":
+                    "transformer.decoder_layer_0.ca_box_gamma",
+                "params/backbone_net/conv1/kernel": "backbone_net.conv1.weight"}
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# float32, relative: the batch's loss within 1e-3 and its gradient's global
+# norm within 1e-2; the named leaves' norms within 3e-2, since near-tied
+# proposals swap a few slots on some lines (the read phase's fp32 swaps) and
+# a swapped line's gradient moves with its selection (the first chip runs
+# of the phase measured 1.6e-2 on a swapped line's ca_box_gamma, 1.0e-2 on
+# the batch's). Per line alone, on every line whose selection is JAX's
+# slot for slot, the gradient norms within 1e-2 and the loss within 3e-3:
+# at about 0.013 per line a float32 CTC over 1800 frames rounds to about
+# 2e-5, 2e-3 of a three-character line's loss (measured 1.8e-3 on one).
+TRAIN_TOL_FP32 = {"line_loss": 3e-3, "line_grad": 1e-2, "loss": 1e-3, "grad_norm": 1e-2,
+                  "leaf": 3e-2}
+# bfloat16: two bf16 computations round at different places and bf16
+# proposal scores tie, so the port's bf16 step and JAX's differ by about
+# as much as each differs from float32; each quantity is held within
+# BF16_SPREAD times JAX's own float32-to-bfloat16 difference of it, and
+# never tighter than BF16_FLOOR relative (the bound of the bf16 step at
+# the tiny geometry, tests/test_torch_train_step.py). Set after the first
+# chip run of the phase, which measured the port's bf16 gradient norm of
+# class_embed 3.6e-2 from JAX's, where JAX's own spread is 0.8e-2.
+BF16_SPREAD, BF16_FLOOR = 4.0, 5e-2
 # agreement with the JAX package's float32 CPU reading of the lines: per
 # query on the lines whose two-stage selection is JAX's, slot for slot; a
 # selection that differs must come from a near tie of proposal scores
@@ -346,21 +390,45 @@ def phase_gather(card):
 
     row = {"name": "row_gather", "S": GATHER_S, "C": GATHER_C, "Q": GATHER_Q,
            "dtype": "float32", "max_abs_err": err, "tol": 0.0,
+           # the wrapper: its index check is the kernel's device-side assert,
+           # so it never waits for the card and a CUDA graph captures it
            "ms": cuda_ms(lambda: row_gather(val, idx)),
-           # the wrapper checks the indices on the host (a device sync)
+           "graph_ms": graph_ms(lambda: row_gather(val, idx)),
+           "host_us": host_us(lambda: row_gather(val, idx)),
            "launch_only_ms": cuda_ms(launch_only),
+           "launch_only_graph_ms": graph_ms(launch_only),
            "plain_ms": cuda_ms(lambda: row_gather_reference(val, idx)),
+           "plain_graph_ms": graph_ms(lambda: row_gather_reference(val, idx)),
            # the library yardstick: index_select and the multiply, two launches
            "library_ms": cuda_ms(lambda: torch.index_select(val, 0, idx) * 2),
-           # the card alone (the wrapper's sync cannot be captured: the launch)
-           "launch_only_graph_ms": graph_ms(launch_only),
-           "plain_graph_ms": graph_ms(lambda: row_gather_reference(val, idx)),
            "library_graph_ms": graph_ms(lambda: torch.index_select(val, 0, idx) * 2),
            "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
-    if err != 0.0:
+    row["out_of_range"] = gather_out_of_range()
+    if err != 0.0 or not row["out_of_range"]["refused"]:
         emit({"phase": "kernels", "failed": row})
-        raise AssertionError(f"row_gather: max abs err {err}, the gather is exact")
+        raise AssertionError(f"row_gather: max abs err {err} (the gather is exact), "
+                             f"out of range {row['out_of_range']}")
     return row
+
+
+def gather_out_of_range():
+    """An index outside [0, S) trips the kernel's device-side assert: in a
+    child process (the assert leaves the CUDA context unusable), the call
+    returns without waiting and the synchronize after it raises."""
+    code = ("import sys, torch; sys.path.insert(0, %r)\n"
+            "from dtlr_tpu_torch.ops import gather\n"
+            "val = torch.zeros(16, 4, device='cuda')\n"
+            "gather.row_gather(val, torch.tensor([3, 16], dtype=torch.int32, device='cuda'))\n"
+            "print('returned', flush=True)\n"
+            "torch.cuda.synchronize()\n"
+            "print('synchronized', flush=True)\n") % REPO
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300)
+    out = proc.stdout + proc.stderr
+    return {"rc": proc.returncode, "returned": "returned" in proc.stdout,
+            "refused": (proc.returncode != 0 and "returned" in proc.stdout
+                        and "synchronized" not in proc.stdout
+                        and "device-side assert" in out)}
 
 
 def phase_grad(card):
@@ -476,6 +544,278 @@ def read_once(card, compute_dtype, ref_path):
     return record, launches
 
 
+def train_reference():
+    """JAX's first step on the fixture lines (smoke_train.npz): per dtype
+    the loss (of JAX's outputs, the CTC in float64: see
+    tests/test_torch_smoke_train.py), the gradient's global norm and
+    TRAIN_LEAVES' norms."""
+    from dtlr_tpu_torch.eval.evaluate import load_lines
+
+    ref = load_lines(SMOKE_TRAIN)
+    return ref, {dt: {"loss": float(ref[f"loss_f64_{dt}"]),
+                      "grad_norm": float(ref[f"grad_norm_{dt}"]),
+                      **{leaf: float(v) for leaf, v in zip(ref["leaves"],
+                                                           ref[f"leaf_grad_norm_{dt}"])}}
+                 for dt in ("float32", "bfloat16")}
+
+
+def train_tolerances(jax_ref):
+    """Relative tolerance per quantity and dtype (see TRAIN_TOL_FP32 and
+    BF16_SPREAD)."""
+    tol = {"float32": {k: TRAIN_TOL_FP32[k if k in ("loss", "grad_norm") else "leaf"]
+                       for k in jax_ref["float32"]}}
+    tol["bfloat16"] = {k: max(BF16_FLOOR, BF16_SPREAD * abs(jax_ref["bfloat16"][k] - v) / abs(v))
+                       for k, v in jax_ref["float32"].items()}
+    return tol
+
+
+def first_step(card, compute_dtype, lines, ref, jax_ref, tol, workdir):
+    """The recipe's trainer (full-model optimizer) from the flagship
+    checkpoint, one step on the eight lines: its loss and gradient norms
+    against JAX's first step, its launches, and the gradient of every
+    decoder layer's ca_box_gamma. Returns the record and the trainer."""
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.ops.flash_attn import KERNELS, RecomputeGrad, flash_mha, reset_launches
+    from dtlr_tpu_torch.train.checkpoints import load_params_npz
+    from dtlr_tpu_torch.train.config import RECIPE
+    from dtlr_tpu_torch.train.engine import Trainer, collate
+
+    t0 = time.perf_counter()
+    trainer = Trainer(RECIPE, dataclasses.replace(FLAGSHIP, compute_dtype=compute_dtype),
+                      os.path.join(workdir, compute_dtype), device="cuda")
+    trainer.build(load_params_npz(PARAMS), head_only=False)
+    batch = collate(lines, range(len(lines["texts"])), lines["charset"], RECIPE.max_targets)
+    if not (np.array_equal(batch["labels"], ref["labels"])
+            and np.array_equal(batch["valid"], ref["valid"])):
+        raise AssertionError("the fixture's labels are not those of smoke_train.npz")
+    build_s = time.perf_counter() - t0
+    per_line = line_steps(trainer, batch, lines, ref, compute_dtype)
+    reset_launches()
+    m = trainer.step(batch)
+    torch.cuda.synchronize()
+    launches = dict(flash_mha.launches)
+    backwards = RecomputeGrad.backwards
+    model = trainer.state.model
+    params = dict(model.named_parameters())
+    got = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           **{leaf: float(params[name].grad.float().norm()) for leaf, name in TRAIN_LEAVES.items()}}
+    rel = {k: abs(got[k] - jax_ref[compute_dtype][k]) / abs(jax_ref[compute_dtype][k])
+           for k in got}
+    gammas = [params[f"transformer.decoder_layer_{i}.ca_box_gamma"].grad
+              for i in range(model.cfg.dec_layers)]
+    gamma_ok = all(g is not None and bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+                   for g in gammas)
+    n_dec = model.cfg.dec_layers
+    record = {"phase": "train", "step": 0, "compute_dtype": compute_dtype,
+              "params": os.path.relpath(PARAMS, REPO), "lines": len(lines["texts"]),
+              "port": got, "jax": jax_ref[compute_dtype], "rel_err": rel,
+              "tol": tol[compute_dtype], "per_line": per_line, "skipped": float(m["skipped"]),
+              "launches_per_step": launches, "recompute_backwards_per_step": backwards,
+              "ca_box_gamma_grad_abs_max": [float(g.abs().max()) for g in gammas],
+              "build_s": build_s, "card": card}
+    record["ok"] = (all(rel[k] <= tol[compute_dtype][k] for k in rel)
+                    and record["skipped"] == 0.0 and per_line["ok"]
+                    and launches == {name: n_dec for name in KERNELS}
+                    and backwards == 2 * n_dec and gamma_ok)
+    return record, trainer, batch
+
+
+def line_steps(trainer, batch, lines, ref, compute_dtype):
+    """Each line's loss and gradient norms alone (B=1, the batch's frame),
+    before the first update, against JAX's per-line values. In float32
+    the lines whose two-stage selection is JAX's (the fixture's
+    ``jax_anchors``, slot for slot) are held to TRAIN_TOL_FP32; a line
+    whose selection differs is reported with its count of swapped slots.
+    In bfloat16 every line is reported."""
+    from dtlr_tpu_torch.ops.ctc import ctc_loss
+    from dtlr_tpu_torch.ops.pixels import prep_images
+
+    model = trainer.state.model
+    model.train()
+    dev = trainer.device
+    dt = compute_dtype
+    rows, ok = [], True
+    for i in range(len(lines["texts"])):
+        for p in model.parameters():
+            p.grad = None
+        b = {k: torch.from_numpy(np.asarray(batch[k][i:i + 1])).to(dev)
+             for k in ("images", "valid_hw", "labels", "valid")}
+        out = model(prep_images(b["images"], b["valid_hw"]), b["valid_hw"])
+        loss, _ = ctc_loss(out["pred_logits"], out["pred_boxes"], b["labels"], b["valid"],
+                           eps=trainer.cfg.ctc_eps)
+        loss.backward()
+        params = dict(model.named_parameters())
+        grads = [p.grad for p in params.values() if p.grad is not None]
+        got = [float(loss.detach()), float(torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads))))]
+        got += [float(params[name].grad.norm()) for name in TRAIN_LEAVES.values()]
+        want = [float(ref[f"line_loss_f64_{dt}"][i]), float(ref[f"line_grad_norm_{dt}"][i])]
+        want += [float(v) for v in ref[f"line_leaf_grad_norm_{dt}"][i]]
+        rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+        anchors = out["interm_outputs_for_matching_pre"]["pred_boxes"][0].detach().float().cpu()
+        same = np.abs(anchors.numpy() - lines["jax_anchors"][i]).max(-1) < 1e-6
+        row = {"line": i, "selection_is_jax": bool(same.all()), "slots_swapped": int((~same).sum()),
+               "loss": got[0], "jax_loss": want[0], "rel_err": dict(zip(
+                   ("loss", "grad_norm", *TRAIN_LEAVES), rel))}
+        if dt == "float32" and row["selection_is_jax"]:
+            row["held"] = True
+            ok = ok and rel[0] <= TRAIN_TOL_FP32["line_loss"] and all(
+                r <= TRAIN_TOL_FP32["line_grad"] for r in rel[1:])
+        rows.append(row)
+    for p in model.parameters():
+        p.grad = None
+    held = sum(1 for r in rows if r.get("held"))
+    return {"lines": rows, "lines_held": held, "ok": ok and (dt != "float32" or held >= 1)}
+
+
+def profile_step(trainer, batch):
+    """One step under torch.profiler (as eval/profile_forward.py reads a
+    forward): the step's time from CUDA events, the kernels' device time
+    and its share of that time, the 10 operators with the most self
+    device time, the 5 busiest kernels, and the CTC kernels that ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        trainer.step(batch)
+        end.record()
+        torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    ops = [e for e in events if e.device_type.name == "CPU" and e.self_device_time_total > 0]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    top = lambda evs, attr, n: [{"name": e.key[:90], "ms": getattr(e, attr) / 1e3,
+                                 "calls": e.count}
+                                for e in sorted(evs, key=lambda e: -getattr(e, attr))[:n]]
+    return {"step_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "top_ops": top(ops, "self_device_time_total", 10),
+            "top_kernels": top(kernels, "device_time_total", 5),
+            "ctc_kernels": sorted(e.key for e in kernels if "ctc" in e.key.lower())}
+
+
+def step_split(trainer, batch):
+    """One step taken in its three parts between CUDA events: the forward
+    and the loss, the backward, the optimizer's update (as the step takes
+    them, without EMA, which the recipe leaves off). Milliseconds each."""
+    from dtlr_tpu_torch.train.engine import to_device
+
+    state = trainer.state
+    model = state.model
+    b = to_device(batch, trainer.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    ev[0].record()
+    total, _ = trainer.step_fn.loss_fn(model, b)
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    state.optimizer.step({n: p.grad for n, p in model.named_parameters()},
+                         torch.isfinite(total.detach()))
+    ev[3].record()
+    state.step += 1
+    ev[3].synchronize()
+    return {"forward_loss_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "update_ms": ev[2].elapsed_time(ev[3])}
+
+
+def phase_train(card):
+    """CTC finetuning on the card (see the module docstring)."""
+    import tempfile
+
+    from dtlr_tpu_torch.eval.evaluate import load_lines, load_model, read_lines
+    from dtlr_tpu_torch.ops.flash_attn import RecomputeGrad, flash_mha, reset_launches
+    from dtlr_tpu_torch.train.checkpoints import export_params_npz
+
+    lines = load_lines(LINES)
+    ref, jax_ref = train_reference()
+    tol = train_tolerances(jax_ref)
+    records = []
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        record, trainer, _ = first_step(card, "float32", lines, ref, jax_ref, tol, workdir)
+        record["seconds"] = time.perf_counter() - t0
+        records.append(record)
+        emit(record)
+        del trainer
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        record, trainer, batch = first_step(card, "bfloat16", lines, ref, jax_ref, tol, workdir)
+        record["seconds"] = time.perf_counter() - t0
+        records.append(record)
+        emit(record)
+        t0 = time.perf_counter()
+
+        # the main path: 2 warm-up and 10 timed steps, counts from 0
+        model = trainer.state.model
+        watch = {n: p.detach().clone() for n, p in model.named_parameters()
+                 if n in ("class_embed.fc.weight", "transformer.decoder_layer_5.linear1.weight")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, skipped, step_ms = [], [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = trainer.step(batch)
+            end.record()
+            end.synchronize()
+            losses.append(float(m["loss"]))
+            skipped.append(float(m["skipped"]))
+            if i >= TRAIN_WARMUP:
+                step_ms.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        launches = dict(flash_mha.launches)
+        backwards = RecomputeGrad.backwards
+        peak = torch.cuda.max_memory_allocated()
+        changed = {n: float((p.detach() - watch[n]).abs().max())
+                   for n, p in model.named_parameters() if n in watch}
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        ms = float(np.median(step_ms))
+        split = step_split(trainer, batch)
+        prof = profile_step(trainer, batch)
+
+        # round trip: the trained weights through an npz into a fresh model
+        path = os.path.join(workdir, "trained.npz")
+        export_params_npz(model, path, dtype=None)
+        th, nms = (float(x) for x in lines["nms_point"])
+        model.eval()
+        trained = read_lines(model, lines, th, nms, batch_size=len(lines["texts"]))
+        fresh = read_lines(load_model(path, device="cuda", compute_dtype="bfloat16"), lines, th,
+                           nms, batch_size=len(lines["texts"]))
+        record = {"phase": "train", "compute_dtype": "bfloat16", "steps": n_steps,
+                  "warmup": TRAIN_WARMUP, "losses": losses, "skipped": skipped,
+                  "ms_per_step_median": ms, "ms_per_step": step_ms,
+                  "lines_per_s": len(lines["texts"]) / (ms / 1e3),
+                  "peak_memory_bytes": peak, "launches": launches,
+                  "recompute_backwards": backwards, "param_change_abs_max": changed,
+                  "split_ms": split, "profiled_step": prof,
+                  "round_trip": {"greedy_trained": trained["greedy"],
+                                 "greedy_reloaded": fresh["greedy"],
+                                 "same": trained["greedy"] == fresh["greedy"]},
+                  "seconds": time.perf_counter() - t0, "card": card}
+        records.append(record)
+        record["ok"] = (all(math.isfinite(x) for x in losses) and not any(skipped)
+                        and all(v > 0 for v in changed.values()) and len(changed) == 2
+                        and launches == {k: 6 * n_steps for k in launches}
+                        and backwards == 12 * n_steps and record["round_trip"]["same"])
+        emit(record)
+        del trainer, model
+        torch.cuda.empty_cache()
+    failed = [(r["compute_dtype"], r.get("step", "timed")) for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"train phase checks failed: {failed} (steps: 0 is the first "
+                             "against JAX's, 'timed' the 12 steps after it)")
+    return records, launches
+
+
 def phase_probe():
     """The probe entry point, in this process: its return code and the
     gather's launches during it."""
@@ -545,17 +885,28 @@ def main() -> int:
         record["seconds"] = time.perf_counter() - t0
         emit(record)
 
+    train_records, train_launches = phase_train(card)
+
     t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
           "seconds": time.perf_counter() - t0})
 
     # each kernel at its main path's shape, dtype and layout: the attention
-    # in the recipe's bfloat16 reading on the decoder's strided views, the
-    # gather in the probe
+    # in the recipe's bfloat16 on the decoder's strided views, the gather
+    # in the probe; launches of this slice's main path, the bf16 train
+    # steps (the attention), and the probe (the gather), with every path's
+    # counts beside them
     main_shape = {"mha_box": (2720, "bfloat16", "strided"), "mha": (900, "bfloat16", "strided"),
                   "row_gather": (GATHER_S, "float32", None)}
-    main_launches = {**launches["bfloat16"], **probe_launches}
+    main_launches = {**train_launches, **probe_launches}
+    by_path = {"mha_box": {"read_bf16_forward": launches["bfloat16"]["mha_box"],
+                           "read_fp32_forward": launches["float32"]["mha_box"],
+                           "train_bf16_12_steps": train_launches["mha_box"]},
+               "mha": {"read_bf16_forward": launches["bfloat16"]["mha"],
+                       "read_fp32_forward": launches["float32"]["mha"],
+                       "train_bf16_12_steps": train_launches["mha"]},
+               "row_gather": {"probe": probe_launches["row_gather"]}}
     kernels = []
     for name in (*flash_attn.KERNELS, *gather.KERNELS):
         row = next(r for r in rows if (r["name"], r["S"], r["dtype"], r.get("layout"))
@@ -563,7 +914,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": main_launches[name],
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                               "bound_ms", "bound_by", "library_ms")}})
+                                               "bound_ms", "bound_by", "library_ms")},
+                        "launches_by_path": by_path[name]})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,10 +11,15 @@
 // is the plain one: one thread per output element, neighbouring threads on
 // neighbouring columns of one row, so each warp reads 128 contiguous bytes
 // of a gathered row and writes 128 contiguous bytes of the output.
-// Indices are not clamped: the caller checks that they lie in [0, S).
+// Indices are not clamped: an index outside [0, S) fails a device-side
+// assert, as index_select's does, so the check costs the host nothing and
+// never waits for the device. The assert traps the kernel and leaves the
+// CUDA context unusable; the next synchronizing call reports it.
 //
 // Plain C interface for ctypes: returns cudaGetLastError() after the launch.
 
+#undef NDEBUG
+#include <cassert>
 #include <cuda_runtime.h>
 
 namespace {
@@ -23,12 +28,14 @@ constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
 row_gather_kernel(const float* __restrict__ val, const int* __restrict__ idx,
-                  float* __restrict__ out, int C, long long n) {
+                  float* __restrict__ out, int S, int C, long long n) {
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (t >= n) return;
   const long long q = t / C;
   const int c = (int)(t - q * C);
-  out[t] = val[(long long)idx[q] * C + c] * 2.f;
+  const int row = idx[q];
+  assert(row >= 0 && row < S && "row_gather index out of range");
+  out[t] = val[(long long)row * C + c] * 2.f;
 }
 
 }  // namespace
@@ -40,6 +47,6 @@ extern "C" int dtlr_row_gather(const void* val, const void* idx, void* out,
   if (n == 0) return 0;
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
   row_gather_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)val, (const int*)idx, (float*)out, C, n);
+      (const float*)val, (const int*)idx, (float*)out, S, C, n);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""DINO character detector, inference forward (counterpart of
+"""DINO character detector without CDN: the inference and CTC finetuning
+forward (counterpart of
 dtlr_tpu/models/dino.py for the flagship recipe: ResNet-50 with
 GroupNorm, windowed encoder, dense decoder cross-attention with the box
 prior).

@@ -4,8 +4,9 @@ and multi-head attention (counterpart of dtlr_tpu/models/layers.py).
 flax's ``DenseGeneral((M, D))`` q/k/v projections are ``nn.Linear(C, M*D)``
 here and its ``out_proj`` over the (M, D) axes is ``nn.Linear(M*D, C)``;
 weights.py reshapes the kernels accordingly. The attention core is
-``flash_mha``: the decoder is the only user, and at inference neither of
-its attentions takes a mask, only key padding and the box prior.
+``flash_mha``: the decoder is the only user, and without CDN (inference
+and CTC finetuning) neither of its attentions takes a mask, only key
+padding and the box prior.
 
 Compute dtype: a flax ``Dense``/``Conv`` with ``dtype=bfloat16`` casts its
 input, kernel and bias to bf16 and returns bf16, while its parameters

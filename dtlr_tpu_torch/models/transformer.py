@@ -1,11 +1,19 @@
 """Encoder, two-stage query selection and decoder with iterative box
-refinement, for inference (counterpart of dtlr_tpu/models/transformer.py
+refinement (counterpart of dtlr_tpu/models/transformer.py
 with ``encoder_type="windowed"``, ``decoder_ca="dense"`` and
 ``dense_box_bias=True``: the flagship recipe).
 
 Every decoder attention goes through ``flash_mha``: the cross-attention
 with the box prior, and the self-attention, which has no mask at
-inference, without it. On CUDA both run the hand-written kernel.
+inference or in CTC finetuning (no CDN queries), without it. On CUDA
+both run the hand-written kernel.
+
+Gradients stop where JAX's do (dtlr_tpu/models/transformer.py:423,469):
+the decoder starts from the selected boxes detached, and each layer
+refines the previous layer's box detached, while the returned
+references keep each layer's undetached box and ``ref_enc`` the
+undetached selection. So a loss reaches a layer's box head only through
+that layer's own outputs.
 
 ``dtype`` is the compute dtype of every projection, as flax's: the
 encoder's input, the position encodings and the learned content queries
@@ -171,7 +179,10 @@ class DeformableTransformer(nn.Module):
         key_bias = torch.zeros(mask_flat.shape, dtype=torch.float32,
                                device=mask_flat.device).masked_fill(mask_flat, -1e9)
         ratios4 = torch.cat([valid_ratios, valid_ratios], dim=-1)[:, None]  # (B, 1, L, 4)
-        reference_points = refpoint_embed.sigmoid()
+        # the decoder starts from the selected boxes with their gradient
+        # stopped; only ref_enc (below) keeps it, as JAX's
+        # stop_gradient(refpoint_embed_undetach) does
+        reference_points = refpoint_embed.detach().sigmoid()
         ref_points = [reference_points]
         intermediate = []
         out_dec = self.tgt_embed[None].expand(B, -1, -1).to(self.compute_dtype)
@@ -183,8 +194,10 @@ class DeformableTransformer(nn.Module):
                 out_dec, query_pos, ref_input, memory, spatial_shapes, key_bias,
                 pos_flat)
             delta = bbox_head(out_dec).float()
-            reference_points = (delta + inverse_sigmoid(reference_points)).sigmoid()
-            ref_points.append(reference_points)
+            new_ref = (delta + inverse_sigmoid(reference_points)).sigmoid()
+            # the next layer refines a stopped box; the outputs keep new_ref
+            reference_points = new_ref.detach()
+            ref_points.append(new_ref)
             intermediate.append(self.decoder_norm(out_dec))
 
         hs = torch.stack(intermediate)        # (n_dec, B, nq, C)

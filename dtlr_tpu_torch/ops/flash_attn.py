@@ -203,8 +203,12 @@ class RecomputeGrad(torch.autograd.Function):
         ctx.save_for_backward(qh, kh, vh, key_bias, *prior)
         return fwd(qh, kh, vh, key_bias, BoxPrior(*prior) if prior else None)
 
+    #: backward calls since ``reset_launches`` (each recomputes once)
+    backwards = 0
+
     @staticmethod
     def backward(ctx, grad_out):
+        RecomputeGrad.backwards += 1
         saved = ctx.saved_tensors
         want = [i for i in _DIFFERENTIABLE
                 if i < len(saved) and ctx.needs_input_grad[1 + i]]
@@ -244,8 +248,10 @@ flash_mha.launches = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launches() -> None:
+    """Zero the launch counts and ``RecomputeGrad.backwards``."""
     for name in KERNELS:
         flash_mha.launches[name] = 0
+    RecomputeGrad.backwards = 0
 
 
 def build_library() -> dict:

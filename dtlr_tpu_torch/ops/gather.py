@@ -30,8 +30,11 @@ def row_gather_reference(val: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def row_gather(val: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out (Q, C) = val[idx] * 2 for val (S, C) float32 and idx (Q,) int32
-    in [0, S). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    in [0, S). CPU tensors take the plain version (which raises IndexError
+    on an index outside [0, S)); CUDA tensors launch the kernel or raise,
+    and an index outside [0, S) trips the kernel's device-side assert,
+    which the next synchronizing call reports and which leaves the CUDA
+    context unusable, as with ``index_select``."""
     if val.device.type == "cpu" and idx.device.type == "cpu":
         return row_gather_reference(val, idx)
     if val.device.type != "cuda" or idx.device != val.device:
@@ -45,9 +48,8 @@ def row_gather(val: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"{idx.dtype} {tuple(idx.shape)}")
     S, C = val.shape
     Q = idx.shape[0]
-    # the kernel clamps nothing: an index outside [0, S) is refused here
-    if Q and (int(idx.min()) < 0 or int(idx.max()) >= S):
-        raise IndexError(f"row_gather index outside [0, {S})")
+    # an index outside [0, S) fails the kernel's device-side assert (as
+    # index_select's does): nothing here waits for the device
     out = torch.empty((Q, C), dtype=torch.float32, device=val.device)
     lib = load_library()
     with torch.cuda.device(val.device):

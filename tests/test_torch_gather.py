@@ -75,3 +75,13 @@ def test_probe_entry_point(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         gather_probe.main([])
+
+
+def test_out_of_range_index_is_refused_on_the_cpu():
+    """On CPU tensors the wrapper is ``index_select``, which raises; on the
+    card the kernel's device-side assert refuses the index
+    (test_torch_kernels_gpu.py::test_row_gather_rejects_what_it_does_not_take)."""
+    val = torch.zeros(16, 4)
+    for bad in ([0, 16], [-1, 3]):
+        with pytest.raises(IndexError):
+            gather.row_gather(val, torch.tensor(bad, dtype=torch.int32))

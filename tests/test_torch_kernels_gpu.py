@@ -8,13 +8,19 @@ Both instantiations, fp32 and bf16 inputs, ragged Q and S (the last key
 tile and the last query tile partly filled; Q=900 leaves 4 rows in the
 last 64-query tile), 20% of keys padded; S=3570, whose levels start at
 keys 2688, 3360 and 3528, so two 64-key tiles mix levels; the decoder's
-strided (B, S, M, D) projection views; a fully masked row.
+strided (B, S, M, D) projection views; a fully masked row. An
+out-of-range gather index fails the kernel's device-side assert, which
+is checked in a child process.
 Tolerances: 1e-4 in fp32 (summation order) and 2e-2 with bf16 inputs,
 as tests/test_flash_attn.py holds the Pallas kernel. Gradients through
 the kernel path recompute through the plain version, so they match its
 autograd gradients to 1e-5 of their scale (fp32) or 1e-2 (bf16 inputs
 and gradients). The row gather is exact.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -23,6 +29,7 @@ import torch
 from dtlr_tpu_torch.ops import flash_attn as tfa
 from dtlr_tpu_torch.ops import gather
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, M, D = 2, 4, 32
 SPATIAL = {200: ((8, 10), (4, 10), (2, 20), (2, 20)),
            145: ((8, 13), (4, 7), (2, 5), (1, 3)),
@@ -174,14 +181,36 @@ def test_row_gather_matches_plain(cuda, S, C, Q):
     assert torch.equal(got, gather.row_gather_reference(val, idx))
 
 
+def _gather_in_child(indices):
+    """row_gather of a (16, 4) table at ``indices`` on the card in a child
+    process (a failed device-side assert leaves the CUDA context
+    unusable), then a synchronize: (return code, stdout + stderr)."""
+    code = (f"import sys, torch; sys.path.insert(0, {REPO!r})\n"
+            "from dtlr_tpu_torch.ops import gather\n"
+            "val = torch.zeros(16, 4, device='cuda')\n"
+            f"idx = torch.tensor({list(indices)!r}, dtype=torch.int32, device='cuda')\n"
+            "gather.row_gather(val, idx)\n"
+            "print('returned without a sync', flush=True)\n"
+            "torch.cuda.synchronize()\n"
+            "print('synchronized', flush=True)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
 @pytest.mark.gpu
 def test_row_gather_rejects_what_it_does_not_take(cuda):
+    """An index outside [0, S) fails the kernel's device-side assert: the
+    call itself returns without waiting for the card, and the next
+    synchronize raises."""
+    rc, out = _gather_in_child([0, 15])
+    assert rc == 0 and "synchronized" in out, out
+    for bad in ([0, 16], [-1, 3]):
+        rc, out = _gather_in_child(bad)
+        assert rc != 0 and "returned without a sync" in out and "synchronized" not in out, out
+        assert "device-side assert" in out, out
     val = torch.zeros(16, 4, device=cuda)
     idx = torch.tensor([0, 15], dtype=torch.int32, device=cuda)
-    with pytest.raises(IndexError):
-        gather.row_gather(val, idx + 1)
-    with pytest.raises(IndexError):
-        gather.row_gather(val, idx - 1)
     with pytest.raises(ValueError, match="int32"):
         gather.row_gather(val, idx.long())
     with pytest.raises(ValueError, match="float32"):

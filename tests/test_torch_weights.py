@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from dtlr_tpu_torch.eval import evaluate
+from dtlr_tpu_torch.train import finetune
 from dtlr_tpu_torch.models.dino import FLAGSHIP, build_dino
 from dtlr_tpu_torch.weights import load_into, load_jax_params, params_from_npz
 from test_torch_model import NUM_CLASSES, TINY, jax_tiny, make_lines, perturbed_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = os.path.join(REPO, "artifacts", "r4ft_params.npz")
+FIXTURE = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_lines.npz")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "dtlr_tpu")
 
 
@@ -124,7 +126,7 @@ def test_port_imports_no_jax_pil_or_dtlr_tpu():
     assert not bad
 
 
-def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_dino(TINY, NUM_CLASSES)
@@ -132,6 +134,9 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
         evaluate.load_model(PARAMS)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.main(["--params", PARAMS, "--lines", "unused.npz"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune.main(["--lines", FIXTURE, "--pretrain_dir", PARAMS, "--full_model",
+                       "--output_dir", str(tmp_path)])
     assert next(build_dino(TINY, NUM_CLASSES, device="cpu").parameters()).device.type == "cpu"
 
 
