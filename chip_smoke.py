@@ -9,10 +9,13 @@ Phases, each printing one JSON line with its seconds:
            row_gather.cu), all started together, for sm_90a (ptxas report:
            registers, shared memory, spills), and the count of tensor-core
            instructions (HMMA, HGMMA) in each attention kernel's SASS
-  kernels  both instantiations of the box-prior attention kernel against
+  kernels  the instantiations of the box-prior attention kernel against
            their plain PyTorch version on the card, at the decoder's shapes,
            in fp32 and bf16, on contiguous heads and on strided views built
-           as the decoder builds them, a fully masked row (uniform and
+           as the decoder builds them, the detection step's shapes (1028
+           queries; the masked self-attention at Q = S = 1028 with the CDN
+           group mask, whose matching rows find two key tiles blocked
+           whole, against SDPA with the boolean mask), a fully masked row (uniform and
            finite), and the row gather at the probe's shapes (an index out
            of range trips its device-side assert, checked in a child
            process); times of each kernel, its plain version and one
@@ -41,6 +44,22 @@ Phases, each printing one JSON line with its seconds:
            the step split into forward, backward and update, one profiled
            step's top operators; and the trained weights through an npz
            into a fresh model that reads the lines to the same strings
+  detect   the detection training step with contrastive denoising, the
+           matcher and the DINO loss (dtlr_tpu_torch.train.engine in
+           detection mode) from the pretraining trunk
+           (artifacts/r4run_params.npz) on the eight lines with character
+           boxes of dtlr_tpu_torch/assets/smoke_detect.npz: the first step
+           in float32 and bfloat16 with the CDN noise at zero against the
+           JAX package's first step (smoke_detect_ref.npz: the loss, every
+           term, the gradient norms, and the seven matchings per line,
+           a differing one with its cost gap), 6 launches of the
+           cross-attention and 6 of the masked self-attention and 12
+           recomputing backwards per step; then 2 warm-up and 10 timed
+           bf16 steps of the recipe with its noise (finite, none skipped,
+           ms per step, lines/s, peak memory, the split into forward,
+           matching, loss, backward and update, the matcher's rounds and
+           host reads, one profiled step), and two steps of the entry
+           point python -m dtlr_tpu_torch.train.pretrain
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel, the card's name
 and power limit from nvidia-smi, and as the last line
@@ -83,6 +102,10 @@ OPS_PER_SCORE = {True: 9, False: 4}
 # keys of the 128x1024 eval bucket (S=2720) and of the 128x1344 bench
 # bucket (S=3570)
 B, M, Q, D = 8, 8, 900, 32
+# the detection step's CDN: dn_number 100 over 64 target slots is one group
+# of 2 x 64 denoising queries before the 900, so the decoder runs 1028
+DN_NUMBER, MAX_TARGETS = 100, 64
+Q_DETECT = Q + 2 * MAX_TARGETS
 LEVELS = {2720: ((16, 128), (8, 64), (4, 32), (2, 16)),
           3570: ((16, 168), (8, 84), (4, 42), (2, 21))}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -91,6 +114,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 SOURCES = {"mha_box": "dtlr_tpu_torch/csrc/box_attn.cu",
            "mha": "dtlr_tpu_torch/csrc/box_attn.cu",
+           "mha_masked": "dtlr_tpu_torch/csrc/box_attn.cu",
            "row_gather": "dtlr_tpu_torch/csrc/row_gather.cu"}
 REPLACES = {"mha_box": "dtlr_tpu/ops/flash_attn.py:186",
             "mha": "dtlr_tpu/ops/flash_attn.py:174",
@@ -126,6 +150,34 @@ TRAIN_TOL_FP32 = {"line_loss": 3e-3, "line_grad": 1e-2, "loss": 1e-3, "grad_norm
 # chip run of the phase, which measured the port's bf16 gradient norm of
 # class_embed 3.6e-2 from JAX's, where JAX's own spread is 0.8e-2.
 BF16_SPREAD, BF16_FLOOR = 4.0, 5e-2
+# the detect phase: JAX's first detection step (tests/test_torch_smoke_detect.py)
+# on the detection fixture's eight lines with the pretraining trunk, and the
+# leaves whose gradient norms are compared (JAX name: port name)
+DETECT_PARAMS = os.path.join(REPO, "artifacts", "r4run_params.npz")
+DETECT_LINES = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_detect.npz")
+DETECT_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_detect_ref.npz")
+DETECT_LEAVES = {"params/label_enc": "label_enc",
+                 "params/class_embed/fc/kernel": "class_embed.fc.weight",
+                 "params/backbone_net/conv1/kernel": "backbone_net.conv1.weight",
+                 "params/transformer/decoder_layer_0/ca_box_gamma":
+                     "transformer.decoder_layer_0.ca_box_gamma",
+                 "params/transformer/decoder_layer_0/self_attn/q_proj/kernel":
+                     "transformer.decoder_layer_0.self_attn.q_proj.weight"}
+# float32, relative: the gradient's global norm 1e-2 and the leaves' norms
+# 3e-2, as the train phase holds CTC (TRAIN_TOL_FP32); each loss term 1e-2,
+# since a near tie can move a target of a line to another query; the
+# batch's loss 3e-3. Near-tied proposals swap slots of the two-stage
+# selection on some lines (the read phase's fp32 swaps), and a swapped
+# line's loss moves with its selection: on an H100 (700 W) the batch's loss
+# measured 1.94e-3 from JAX's (its DN class terms 8e-3) with every matching
+# equal to JAX's, one line with 4 swapped slots carrying it. Each line alone
+# is held tighter where its selection is JAX's (DETECT_LINE_TOL_FP32).
+DETECT_TOL_FP32 = {"loss": 3e-3, "grad_norm": 1e-2, "leaf": 3e-2, "term": 1e-2}
+# each line alone, on the lines whose two-stage selection is JAX's slot for
+# slot (anchors within ANCHOR_TOL): the loss and its DN class term 1e-3,
+# the gradient norms as the batch's
+DETECT_LINE_TOL_FP32 = {"loss": 1e-3, "loss_ce_dn": 1e-3, "grad_norm": 1e-2, "leaf": 3e-2}
+ANCHOR_TOL = 1e-6
 # agreement with the JAX package's float32 CPU reading of the lines: per
 # query on the lines whose two-stage selection is JAX's, slot for slot; a
 # selection that differs must come from a near tie of proposal scores
@@ -218,10 +270,11 @@ def host_us(fn, calls=200, runs=3):
     return float(np.median(times))
 
 
-def attention_inputs(S, dtype, prior, gen, strided=False):
-    """Heads (B, M, L, D), contiguous or, with ``strided``, as the decoder
-    builds them: (B, L, M*D) projections viewed as (B, L, M, D) and
-    transposed, so rows are M*D elements apart and heads D."""
+def attention_inputs(S, dtype, prior, gen, strided=False, nq=Q):
+    """Heads (B, M, L, D) of ``nq`` queries and S keys, contiguous or, with
+    ``strided``, as the decoder builds them: (B, L, M*D) projections viewed
+    as (B, L, M, D) and transposed, so rows are M*D elements apart and
+    heads D."""
     from dtlr_tpu_torch.ops.flash_attn import make_box_prior
 
     dev = "cuda"
@@ -230,43 +283,60 @@ def attention_inputs(S, dtype, prior, gen, strided=False):
                            .view(B, n, M, D).transpose(1, 2))
     else:
         heads = lambda n: torch.randn(B, M, n, D, generator=gen, device=dev).to(dtype)
-    qh, kh, vh = heads(Q), heads(S), heads(S)
+    qh, kh, vh = heads(nq), heads(S), heads(S)
     pad = torch.rand(B, S, generator=gen, device=dev) < 0.2
     key_bias = torch.zeros(B, S, device=dev).masked_fill(pad, -1e9)
     box = None
     if prior:
-        ref = 0.05 + 0.85 * torch.rand(B, Q, 4, 4, generator=gen, device=dev)
+        ref = 0.05 + 0.85 * torch.rand(B, nq, 4, 4, generator=gen, device=dev)
         gamma = torch.exp(0.3 * torch.randn(M, generator=gen, device=dev))
         box = make_box_prior(ref, LEVELS[S], gamma)
     return qh, kh, vh, key_bias, box
 
 
-def bound(qh, kh, vh, key_bias, box):
+def open_pairs(qh, kh, group=None):
+    """The (query, key) pairs the attention computes: Q*S, or under the
+    CDN group mask the pairs it does not block (this run's layout)."""
+    if group is None:
+        return qh.shape[2] * kh.shape[2]
+    from dtlr_tpu_torch.ops.flash_attn import group_blocked
+
+    return int((~group_blocked(group)).sum())
+
+
+def bound(qh, kh, vh, key_bias, box, group=None):
     """Least time for the work: every input read once and the output
-    written once, against the operations 2*B*M*Q*S*(2D + 8 with the prior)."""
+    written once, against the operations 2*B*M*(open pairs)*(2D + 8 with
+    the prior); a pair the mask blocks needs no work."""
     Bq, Mq, Qq, Dq = qh.shape
-    S = kh.shape[2]
-    flops = 2 * Bq * Mq * Qq * S * (2 * Dq + (8 if box is not None else 0))
-    tensors = [qh, kh, vh, key_bias] + (list(box) if box is not None else [])
+    flops = 2 * Bq * Mq * open_pairs(qh, kh, group) * (2 * Dq + (8 if box is not None else 0))
+    tensors = ([qh, kh, vh, key_bias] + (list(box) if box is not None else [])
+               + ([group] if group is not None else []))
     nbytes = sum(t.numel() * t.element_size() for t in tensors) + Bq * Mq * Qq * Dq * 4
     t_ops = flops / PEAK_FLOPS[qh.dtype]
     t_bytes = nbytes / MEM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def score_floor(qh, kh, box):
+def score_floor(qh, kh, box, group=None):
     """Least time for the per-score work outside the products (see
     OPS_PER_SCORE): the CUDA cores' share against the SFUs' share."""
-    scores = qh.shape[0] * qh.shape[1] * qh.shape[2] * kh.shape[2]
+    scores = qh.shape[0] * qh.shape[1] * open_pairs(qh, kh, group)
     return 1e3 * max(scores * OPS_PER_SCORE[box is not None] / LANE_OPS_PER_S,
                      scores / SFU_PER_S)
 
 
-def sdpa_call(qh, kh, vh, key_bias, box):
+def sdpa_call(qh, kh, vh, key_bias, box, group=None):
     """One scaled_dot_product_attention call with the additive bias
-    materialized: the library yardstick, never used by the port."""
+    materialized, or under the CDN mask with the (Q, Q) boolean mask: the
+    library yardstick, never used by the port."""
     from torch.nn.functional import scaled_dot_product_attention
 
+    if group is not None:
+        from dtlr_tpu_torch.ops.flash_attn import group_blocked
+
+        allowed = ~group_blocked(group)
+        return lambda: scaled_dot_product_attention(qh, kh, vh, attn_mask=allowed)
     bias = key_bias[:, None, None, :].expand(-1, M, qh.shape[2], -1)
     if box is not None:
         lvl = box.level.long()
@@ -285,25 +355,34 @@ def phase_kernels(card):
     # main path runs the no-prior kernel; S = 3570's levels start at keys
     # 0, 2688, 3360 and 3528, so two of its 64-key tiles mix levels; the
     # strided rows take the decoder's projection views (its layout)
-    configs = [("mha_box", S, dt, False) for S in (2720, 3570)
+    # strided; the detection step's shapes: the cross-attention at 1028
+    # queries and the masked self-attention at Q = S = 1028 with the
+    # fixture's CDN layout, whose 900 matching rows find the first two key
+    # tiles (the denoising prefix) blocked whole
+    configs = [("mha_box", S, Q, dt, False) for S in (2720, 3570)
                for dt in (torch.float32, torch.bfloat16)]
-    configs += [("mha", S, dt, False) for S in (900, 2720, 3570)
+    configs += [("mha", S, Q, dt, False) for S in (900, 2720, 3570)
                 for dt in (torch.float32, torch.bfloat16)]
-    configs += [(name, S, dt, True) for name, S in (("mha_box", 2720), ("mha", 900))
+    configs += [(name, S, Q, dt, True) for name, S in (("mha_box", 2720), ("mha", 900))
+                for dt in (torch.float32, torch.bfloat16)]
+    configs += [("mha_box", 2720, Q_DETECT, torch.bfloat16, True)]
+    configs += [("mha_masked", Q_DETECT, Q_DETECT, dt, True)
                 for dt in (torch.float32, torch.bfloat16)]
     rows = []
-    for name, S, dtype, strided in configs:
+    for name, S, nq, dtype, strided in configs:
         prior = name == "mha_box"
-        args = attention_inputs(S, dtype, prior, gen, strided)
-        if S == Q:  # the self-attention pads no key
+        args = attention_inputs(S, dtype, prior, gen, strided, nq)
+        if S == nq:  # the self-attention pads no key
             args = args[:3] + (torch.zeros_like(args[3]), None)
+        if name == "mha_masked":
+            args = args + (detect_groups(),)
         out = flash_mha(*args)
         torch.cuda.synchronize()
         ref = dense_reference(*args)
         err = float((out - ref).abs().max())
         ok = math.isfinite(err) and err <= TOL[dtype]
         bound_ms, bound_by = bound(*args)
-        row = {"name": name, "S": S, "dtype": str(dtype).split(".")[1],
+        row = {"name": name, "S": S, "Q": nq, "dtype": str(dtype).split(".")[1],
                "layout": "strided" if strided else "contiguous",
                "max_abs_err": err, "tol": TOL[dtype],
                "ms": cuda_ms(lambda: flash_mha(*args)),
@@ -314,7 +393,10 @@ def phase_kernels(card):
                "plain_graph_ms": graph_ms(lambda: dense_reference(*args)),
                "library_graph_ms": graph_ms(sdpa_call(*args)),
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "score_floor_ms": score_floor(args[0], args[1], args[4]), "card": card}
+               "score_floor_ms": score_floor(args[0], args[1], args[4], *args[5:]),
+               "card": card}
+        if name == "mha_masked":
+            row["blocks_with_whole_tiles_blocked"] = whole_tiles_blocked(args[5])
         rows.append(row)
         if not ok:
             emit({"phase": "kernels", "failed": row})
@@ -322,6 +404,29 @@ def phase_kernels(card):
         del args, out, ref
         torch.cuda.empty_cache()
     return rows
+
+
+def detect_groups():
+    """The (Q_DETECT,) CDN groups of the detection step: one group of 2 x 64
+    denoising queries, then the 900 matching queries."""
+    from dtlr_tpu_torch.models.cdn import CdnMeta, cdn_num_groups, cdn_query_groups
+
+    G = cdn_num_groups(DN_NUMBER, MAX_TARGETS)
+    return cdn_query_groups(Q, CdnMeta(G * 2 * MAX_TARGETS, G, MAX_TARGETS), "cuda")
+
+
+def whole_tiles_blocked(group, rows=128, keys=64):
+    """(128-query block, 64-key tile) pairs of the bf16 kernel in which
+    every score is blocked, and the pairs in all."""
+    from dtlr_tpu_torch.ops.flash_attn import group_blocked
+
+    blocked = group_blocked(group)
+    n = blocked.shape[0]
+    nr, nk = -(-n // rows), -(-n // keys)
+    pad = torch.ones(nr * rows, nk * keys, dtype=torch.bool, device=blocked.device)
+    pad[:n, :n] = blocked
+    whole = pad.view(nr, rows, nk, keys).all(3).all(1)
+    return {"whole": int(whole.sum()), "pairs": nr * nk}
 
 
 def masked_rows():
@@ -438,19 +543,22 @@ def phase_grad(card):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for name, S, dtype in [(n, S, dt) for n, S in (("mha_box", 2720), ("mha", 900))
+    for name, S, dtype in [(n, S, dt) for n, S in (("mha_box", 2720), ("mha", 900),
+                                                   ("mha_masked", Q_DETECT))
                            for dt in (torch.float32, torch.bfloat16)]:
         prior = name == "mha_box"
-        qh, kh, vh, key_bias, box = attention_inputs(S, dtype, prior, gen)
-        if S == Q:
+        nq = Q_DETECT if name == "mha_masked" else Q
+        qh, kh, vh, key_bias, box = attention_inputs(S, dtype, prior, gen, nq=nq)
+        if S == nq:
             key_bias = torch.zeros_like(key_bias)
-        w = torch.randn(B, M, Q, D, generator=gen, device="cuda")
+        group = (detect_groups(),) if name == "mha_masked" else ()
+        w = torch.randn(B, M, nq, D, generator=gen, device="cuda")
 
         def grads(fn):
             leaves = [t.clone().requires_grad_() for t in (qh, kh, vh)]
             fields = ([t.clone().requires_grad_(t.is_floating_point()) for t in box]
                       if prior else [])
-            out = fn(*leaves, key_bias, BoxPrior(*fields) if prior else None)
+            out = fn(*leaves, key_bias, BoxPrior(*fields) if prior else None, *group)
             (out * w).sum().backward()
             return [t.grad for t in leaves + fields[:4] + fields[7:]]  # cx..ihh, gamma
 
@@ -481,7 +589,7 @@ def read_once(card, compute_dtype, ref_path):
     from dtlr_tpu_torch.eval import metrics
     from dtlr_tpu_torch.eval.evaluate import (agreement, forward_lines, load_lines,
                                               load_model, read_lines)
-    from dtlr_tpu_torch.ops.flash_attn import KERNELS, flash_mha, reset_launches
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
 
     t0 = time.perf_counter()
     model = load_model(PARAMS, device="cuda", compute_dtype=compute_dtype)
@@ -495,7 +603,7 @@ def read_once(card, compute_dtype, ref_path):
     res = read_lines(model, lines, th, nms, batch_size=len(lines["images"]))
     torch.cuda.synchronize()
     launches = dict(flash_mha.launches)
-    expect = {name: n_dec for name in KERNELS}
+    expect = {"mha_box": n_dec, "mha": n_dec, "mha_masked": 0}
     if launches != expect:
         raise AssertionError(f"{compute_dtype}: kernel launches {launches} != {expect} "
                              "for one forward")
@@ -575,7 +683,7 @@ def first_step(card, compute_dtype, lines, ref, jax_ref, tol, workdir):
     against JAX's first step, its launches, and the gradient of every
     decoder layer's ca_box_gamma. Returns the record and the trainer."""
     from dtlr_tpu_torch.models.dino import FLAGSHIP
-    from dtlr_tpu_torch.ops.flash_attn import KERNELS, RecomputeGrad, flash_mha, reset_launches
+    from dtlr_tpu_torch.ops.flash_attn import RecomputeGrad, flash_mha, reset_launches
     from dtlr_tpu_torch.train.checkpoints import load_params_npz
     from dtlr_tpu_torch.train.config import RECIPE
     from dtlr_tpu_torch.train.engine import Trainer, collate
@@ -615,7 +723,7 @@ def first_step(card, compute_dtype, lines, ref, jax_ref, tol, workdir):
               "build_s": build_s, "card": card}
     record["ok"] = (all(rel[k] <= tol[compute_dtype][k] for k in rel)
                     and record["skipped"] == 0.0 and per_line["ok"]
-                    and launches == {name: n_dec for name in KERNELS}
+                    and launches == {"mha_box": n_dec, "mha": n_dec, "mha_masked": 0}
                     and backwards == 2 * n_dec and gamma_ok)
     return record, trainer, batch
 
@@ -804,7 +912,8 @@ def phase_train(card):
         records.append(record)
         record["ok"] = (all(math.isfinite(x) for x in losses) and not any(skipped)
                         and all(v > 0 for v in changed.values()) and len(changed) == 2
-                        and launches == {k: 6 * n_steps for k in launches}
+                        and launches == {"mha_box": 6 * n_steps, "mha": 6 * n_steps,
+                                         "mha_masked": 0}
                         and backwards == 12 * n_steps and record["round_trip"]["same"])
         emit(record)
         del trainer, model
@@ -813,6 +922,371 @@ def phase_train(card):
     if failed:
         raise AssertionError(f"train phase checks failed: {failed} (steps: 0 is the first "
                              "against JAX's, 'timed' the 12 steps after it)")
+    return records, launches
+
+
+def detect_reference():
+    """JAX's first detection step on the detection fixture
+    (smoke_detect_ref.npz, written on the CPU by
+    tests/test_torch_smoke_detect.py): per dtype the batch's loss, every
+    term, the gradient's global norm and DETECT_LEAVES' norms, and each
+    line's seven assignments."""
+    from dtlr_tpu_torch.eval.evaluate import load_lines
+
+    ref = load_lines(DETECT_REF)
+    values = {}
+    for dt in ("float32", "bfloat16"):
+        values[dt] = {"loss": float(ref[f"loss_{dt}"]), "grad_norm": float(ref[f"grad_norm_{dt}"]),
+                      **{f"term:{k}": float(v) for k, v in zip(ref["terms"], ref[f"terms_{dt}"])},
+                      **{f"leaf:{k}": float(v) for k, v in zip(ref["leaves"],
+                                                              ref[f"leaf_grad_norm_{dt}"])}}
+    return ref, values
+
+
+def detect_tolerances(jax_ref):
+    """Relative tolerance per quantity and dtype: DETECT_TOL_FP32 in float32;
+    in bfloat16 BF16_SPREAD times JAX's own float32-to-bfloat16 difference
+    of the quantity, never tighter than BF16_FLOOR."""
+    kind = lambda k: k.split(":")[0] if ":" in k else k
+    tol = {"float32": {k: DETECT_TOL_FP32[kind(k)] for k in jax_ref["float32"]}}
+    tol["bfloat16"] = {k: max(BF16_FLOOR, BF16_SPREAD * abs(jax_ref["bfloat16"][k] - v)
+                              / max(abs(v), 1e-12))
+                       for k, v in jax_ref["float32"].items()}
+    return tol
+
+
+def detect_trainer(compute_dtype, workdir, noise):
+    """The recipe's detection trainer from the pretraining trunk; with
+    ``noise`` False the CDN queries carry no noise (the first step against
+    JAX's)."""
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.train.checkpoints import load_params_npz
+    from dtlr_tpu_torch.train.config import RECIPE_DETECTION
+    from dtlr_tpu_torch.train.engine import Trainer
+
+    model_cfg = dataclasses.replace(FLAGSHIP, compute_dtype=compute_dtype)
+    if not noise:
+        model_cfg = dataclasses.replace(model_cfg, dn_label_noise_ratio=0.0,
+                                        dn_box_noise_scale=0.0)
+    trainer = Trainer(RECIPE_DETECTION, model_cfg, os.path.join(workdir, compute_dtype),
+                      device="cuda", mode="detection")
+    trainer.build(load_params_npz(DETECT_PARAMS))
+    return trainer
+
+
+def assignment_record(trainer, arrays, ref, compute_dtype):
+    """The port's two-stage selection and seven matchings of the batch
+    before the step (a forward in train mode without gradients, the step's
+    own inputs), against JAX's. A line's selection is JAX's when every
+    selected proposal's anchor is JAX's, slot for slot (near-tied
+    proposal scores swap slots, see the read phase). Per matched output:
+    the lines whose assignment is JAX's query for query, and those whose
+    every target is matched to JAX's proposal (the anchor of its query),
+    which is what a swap of slots leaves unchanged. For a line that
+    differs: the targets matched to another proposal, and how near a tie:
+    the port's cost of the queries holding JAX's proposals over the cost
+    of its own, relative, under the port's costs (when the port selected
+    all of JAX's proposals). Held: in float32 a line with JAX's selection
+    keeps JAX's assignment query for query; in bfloat16 a line matched to
+    other proposals must be one where JAX's own float32 and bfloat16
+    steps match to different proposals too (a tie at bf16's resolution:
+    on an H100 one target of line 3 moved, which JAX's own
+    float32-to-bfloat16 change moves as well)."""
+    from dtlr_tpu_torch.ops.matcher import match_cost, match_outputs
+    from dtlr_tpu_torch.ops.pixels import prep_images
+
+    model = trainer.state.model
+    model.train()
+    targets = {k: arrays[k] for k in ("labels", "boxes", "valid")}
+    with torch.no_grad():
+        out = model(prep_images(arrays["images"], arrays["valid_hw"]), arrays["valid_hw"],
+                    targets, train=True)
+        matched = [out] + list(out["aux_outputs"]) + [out["interm_outputs"]]
+        assign = match_outputs(matched, targets["labels"], targets["boxes"].float(),
+                               targets["valid"])
+    cfg = trainer.cfg
+    anchors = out["interm_outputs_for_matching_pre"]["pred_boxes"].float().cpu().numpy()
+    jax_anchors = ref[f"anchors_{compute_dtype}"]
+    same_slot = np.abs(anchors - jax_anchors).max(-1) <= ANCHOR_TOL  # (B, nq)
+    selection = [{"line": i, "selection_is_jax": bool(same_slot[i].all()),
+                  "slots_swapped": int((~same_slot[i]).sum())} for i in range(len(anchors))]
+    jax_assign = ref[f"assign_{compute_dtype}"]  # (lines, outputs, N)
+    valid = arrays["valid"].cpu().numpy()
+    jax_moves = jax_own_moves(ref, valid)
+    record = {}
+    for o, (name, a) in enumerate(zip(ref["matched"], assign)):
+        a = a.cpu().numpy()
+        by_query, by_proposal, differ = 0, 0, []
+        for i in range(a.shape[0]):
+            cols = np.flatnonzero(valid[i])
+            ja = jax_assign[i, o, cols]
+            by_query += int(np.array_equal(a[i, cols], ja))
+            moved = np.abs(anchors[i, a[i, cols]] - jax_anchors[i, ja]).max(-1) > ANCHOR_TOL
+            if not moved.any():
+                by_proposal += 1
+                continue
+            # the port's query holding each of JAX's proposals, if it selected it
+            hits = np.abs(anchors[i][None, :, :] - jax_anchors[i, ja][:, None, :]).max(-1)
+            holder = np.where((hits <= ANCHOR_TOL).any(1), hits.argmin(1), -1)
+            row = {"line": i, "targets_moved": int(moved.sum()),
+                   "jax_proposals_selected": int((holder >= 0).sum()), "targets": len(cols)}
+            if (holder >= 0).all():
+                cost = match_cost(matched[o]["pred_logits"][i], matched[o]["pred_boxes"][i].float(),
+                                  targets["labels"][i], targets["boxes"][i].float(),
+                                  cfg.set_cost_class, cfg.set_cost_bbox, cfg.set_cost_giou,
+                                  cfg.focal_alpha).cpu().numpy()
+                own = float(cost[a[i, cols], cols].sum())
+                theirs = float(cost[holder, cols].sum())
+                row.update(cost_own=own, cost_jax_proposals=theirs,
+                           rel_gap=(theirs - own) / max(abs(own), 1e-12))
+            differ.append(row)
+        record[name] = {"lines_equal_by_query": by_query, "lines_equal_by_proposal": by_proposal,
+                        "lines": int(a.shape[0]), "differ": differ,
+                        "jax_own_fp32_bf16_moves": sorted(jax_moves[name])}
+        # float32: a line with JAX's selection keeps JAX's assignment; bfloat16:
+        # a line matched to other proposals is one whose matched proposals
+        # also move between JAX's own float32 and bfloat16 steps
+        moved_lines = {row["line"] for row in differ}
+        if compute_dtype == "float32":
+            record[name]["ok"] = not any(
+                selection[i]["selection_is_jax"] and not np.array_equal(
+                    a[i, valid[i]], jax_assign[i, o, valid[i]]) for i in range(a.shape[0]))
+        else:
+            record[name]["ok"] = moved_lines <= jax_moves[name]
+    return record, selection
+
+
+def jax_own_moves(ref, valid):
+    """Per matched output, the lines on which JAX's own float32 and
+    bfloat16 first steps match some target to different proposals."""
+    af, ab = ref["anchors_float32"], ref["anchors_bfloat16"]
+    moves = {}
+    for o, name in enumerate(ref["matched"]):
+        moves[name] = set()
+        for i in range(len(valid)):
+            cols = np.flatnonzero(valid[i])
+            pa = af[i, ref["assign_float32"][i, o, cols]]
+            pb = ab[i, ref["assign_bfloat16"][i, o, cols]]
+            if (np.abs(pa - pb).max(-1) > ANCHOR_TOL).any():
+                moves[name].add(i)
+    return moves
+
+
+def detect_line_steps(trainer, batch, ref, compute_dtype, selection):
+    """Each line's loss, DN class loss and gradient norms alone (B=1, the
+    batch's frame), before the step, against JAX's per-line values. In
+    float32 the lines whose selection is JAX's are held to
+    DETECT_LINE_TOL_FP32; the others are reported with their swapped
+    slots."""
+    from dtlr_tpu_torch.train.engine import to_device
+
+    model = trainer.state.model
+    model.train()
+    terms = list(ref["terms"])
+    rows, ok = [], True
+    for i in range(len(batch["texts"])):
+        for p in model.parameters():
+            p.grad = None
+        b = to_device({k: np.asarray(batch[k][i:i + 1]) for k in
+                       ("images", "valid_hw", "labels", "valid", "boxes")}, trainer.device)
+        total, losses = trainer.step_fn.loss_fn(model, b)
+        total.backward()
+        params = dict(model.named_parameters())
+        grads = [p.grad for p in params.values() if p.grad is not None]
+        got = {"loss": float(total.detach()), "loss_ce_dn": float(losses["loss_ce_dn"]),
+               "grad_norm": float(torch.linalg.vector_norm(torch.stack(
+                   torch._foreach_norm(grads))))}
+        got.update({f"leaf:{k}": float(params[DETECT_LEAVES[k]].grad.float().norm())
+                    for k in ref["leaves"]})
+        want = {"loss": float(ref[f"line_loss_{compute_dtype}"][i]),
+                "loss_ce_dn": float(ref[f"line_terms_{compute_dtype}"][i][
+                    terms.index("loss_ce_dn")]),
+                "grad_norm": float(ref[f"line_grad_norm_{compute_dtype}"][i])}
+        want.update({f"leaf:{k}": float(v) for k, v in
+                     zip(ref["leaves"], ref[f"line_leaf_grad_norm_{compute_dtype}"][i])})
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in got}
+        row = {"line": i, **selection[i], "rel_err": rel}
+        if compute_dtype == "float32" and selection[i]["selection_is_jax"]:
+            row["held"] = True
+            kind = lambda k: k.split(":")[0] if ":" in k else k
+            ok = ok and all(rel[k] <= DETECT_LINE_TOL_FP32[kind(k)] for k in rel)
+        rows.append(row)
+    for p in model.parameters():
+        p.grad = None
+    held = sum(1 for r in rows if r.get("held"))
+    return {"lines": rows, "lines_held": held,
+            "ok": ok and (compute_dtype != "float32" or held >= 1)}
+
+
+def detect_first_step(card, compute_dtype, lines, ref, jax_ref, tol, workdir):
+    """One step of the recipe's detection trainer (zero CDN noise) on the
+    eight lines: its loss, terms and gradient norms against JAX's first
+    step, the matchings against JAX's, and its launches."""
+    from dtlr_tpu_torch.ops import matcher
+    from dtlr_tpu_torch.ops.flash_attn import RecomputeGrad, flash_mha, reset_launches
+    from dtlr_tpu_torch.train.engine import collate, to_device
+
+    t0 = time.perf_counter()
+    trainer = detect_trainer(compute_dtype, workdir, noise=False)
+    batch = collate(lines, range(len(lines["texts"])), lines["charset"], MAX_TARGETS)
+    build_s = time.perf_counter() - t0
+    assignments, selection = assignment_record(trainer, to_device(batch, trainer.device), ref,
+                                               compute_dtype)
+    per_line = detect_line_steps(trainer, batch, ref, compute_dtype, selection)
+    reset_launches()
+    matcher.reset_stats()
+    m = trainer.step(batch)
+    torch.cuda.synchronize()
+    launches = dict(flash_mha.launches)
+    backwards = RecomputeGrad.backwards
+    params = dict(trainer.state.model.named_parameters())
+    got = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    got.update({f"term:{k}": float(m[k]) for k in ref["terms"]})
+    got.update({f"leaf:{k}": float(params[DETECT_LEAVES[k]].grad.float().norm())
+                for k in ref["leaves"]})
+    want = jax_ref[compute_dtype]
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in got}
+    n_dec = trainer.model_cfg.dec_layers
+    worst = sorted(rel, key=lambda k: -rel[k] / tol[compute_dtype][k])[:8]
+    label_rows = (params["label_enc"].grad.abs().sum(-1) > 0).nonzero().flatten().tolist()
+    used = sorted(set(batch["labels"][batch["valid"]].tolist()))
+    record = {"phase": "detect", "step": 0, "compute_dtype": compute_dtype,
+              "params": os.path.relpath(DETECT_PARAMS, REPO), "lines": len(lines["texts"]),
+              "port": {k: got[k] for k in ("loss", "grad_norm")},
+              "jax": {k: want[k] for k in ("loss", "grad_norm")},
+              "rel_err": rel, "tol": tol[compute_dtype],
+              "worst_by_tolerance": [(k, rel[k], tol[compute_dtype][k]) for k in worst],
+              "skipped": float(m["skipped"]), "per_line": per_line,
+              "assignments": assignments,
+              "launches_per_step": launches, "recompute_backwards_per_step": backwards,
+              "matcher": dict(matcher.auction_assign.stats),
+              "label_enc_rows_with_gradient_are_the_labels": label_rows == used,
+              "build_s": build_s, "card": card}
+    record["ok"] = (all(rel[k] <= tol[compute_dtype][k] for k in rel)
+                    and record["skipped"] == 0.0 and label_rows == used and per_line["ok"]
+                    and all(a["ok"] for a in assignments.values())
+                    and launches == {"mha_box": n_dec, "mha": 0, "mha_masked": n_dec}
+                    and backwards == 2 * n_dec)
+    return record, trainer, batch
+
+
+def detect_split(trainer, batch):
+    """One detection step (``Trainer.step``) in its parts between CUDA
+    events that the step records as each phase ends: the forward, the
+    matching (seven outputs, one auction), the loss, the backward and the
+    optimizer's update with EMA. Milliseconds each."""
+    events = [torch.cuda.Event(enable_timing=True)]
+    phases = []
+
+    def mark(phase):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        phases.append(phase)
+
+    events[0].record()
+    trainer.step(batch, mark=mark)
+    events[-1].synchronize()
+    return {f"{p}_ms": events[i].elapsed_time(events[i + 1]) for i, p in enumerate(phases)}
+
+
+def phase_detect(card):
+    """The detection training step on the card (see the module docstring)."""
+    import tempfile
+
+    from dtlr_tpu_torch.eval.evaluate import load_lines
+    from dtlr_tpu_torch.ops import matcher
+    from dtlr_tpu_torch.ops.flash_attn import RecomputeGrad, flash_mha, reset_launches
+    from dtlr_tpu_torch.train import pretrain
+
+    lines = load_lines(DETECT_LINES)
+    ref, jax_ref = detect_reference()
+    tol = detect_tolerances(jax_ref)
+    records = []
+    with tempfile.TemporaryDirectory() as workdir:
+        for compute_dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            record, trainer, batch = detect_first_step(card, compute_dtype, lines, ref, jax_ref,
+                                                       tol, workdir)
+            record["seconds"] = time.perf_counter() - t0
+            records.append(record)
+            emit(record)
+            del trainer
+            torch.cuda.empty_cache()
+
+        # the main path: the recipe with its CDN noise, 2 warm-up and 10
+        # timed bf16 steps, counts from 0
+        t0 = time.perf_counter()
+        trainer = detect_trainer("bfloat16", workdir, noise=True)
+        model = trainer.state.model
+        watch = {n: p.detach().clone() for n, p in model.named_parameters()
+                 if n in ("class_embed.fc.weight", "label_enc")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        matcher.reset_stats()
+        losses, skipped, step_ms, terms = [], [], [], []
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = trainer.step(batch)
+            end.record()
+            end.synchronize()
+            losses.append(float(m["loss"]))
+            skipped.append(float(m["skipped"]))
+            terms.append({k: float(m[k]) for k in ("loss_ce", "loss_bbox", "loss_giou",
+                                                   "loss_ce_dn", "loss_bbox_dn")})
+            if i >= TRAIN_WARMUP:
+                step_ms.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        launches = dict(flash_mha.launches)
+        backwards = RecomputeGrad.backwards
+        match_stats = dict(matcher.auction_assign.stats)
+        peak = torch.cuda.max_memory_allocated()
+        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+        changed = {n: float((p.detach() - watch[n]).abs().max())
+                   for n, p in model.named_parameters() if n in watch}
+        ms = float(np.median(step_ms))
+        split = detect_split(trainer, batch)
+        prof = profile_step(trainer, batch)
+        record = {"phase": "detect", "compute_dtype": "bfloat16", "cdn_noise": True,
+                  "steps": n_steps, "warmup": TRAIN_WARMUP, "losses": losses,
+                  "terms": terms, "skipped": skipped, "ms_per_step_median": ms,
+                  "ms_per_step": step_ms, "lines_per_s": len(lines["texts"]) / (ms / 1e3),
+                  "peak_memory_bytes": peak, "launches": launches,
+                  "recompute_backwards": backwards,
+                  "matcher_per_step": {k: v / n_steps for k, v in match_stats.items()},
+                  "param_change_abs_max": changed, "split_ms": split, "profiled_step": prof,
+                  "card": card}
+        n_dec = model.cfg.dec_layers
+        record["ok"] = (all(math.isfinite(x) for x in losses) and not any(skipped)
+                        and all(v > 0 for v in changed.values()) and len(changed) == 2
+                        and launches == {"mha_box": n_dec * n_steps, "mha": 0,
+                                         "mha_masked": n_dec * n_steps}
+                        and backwards == 2 * n_dec * n_steps)
+        records.append(record)
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        # the entry point a user runs: two steps, a save and the detection eval
+        reset_launches()
+        cli = pretrain.main(["--params", DETECT_PARAMS, "--lines", DETECT_LINES,
+                             "--output_dir", os.path.join(workdir, "cli"), "--steps", "2"])
+        torch.cuda.synchronize()
+        record["entry_point"] = {
+            "train": cli["train"], "eval": cli["eval"], "launches": dict(flash_mha.launches),
+            "weights_saved": os.path.exists(cli["params"])}
+        record["ok"] = (record["ok"] and record["entry_point"]["weights_saved"]
+                        and math.isfinite(cli["eval"]["loss"])
+                        and flash_mha.launches["mha_masked"] == 2 * n_dec)
+        record["seconds"] = time.perf_counter() - t0
+        emit(record)
+        torch.cuda.empty_cache()
+    failed = [(r["compute_dtype"], r.get("step", "timed")) for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"detect phase checks failed: {failed} (steps: 0 is the first "
+                             "against JAX's, 'timed' the 12 recipe steps and the entry point)")
     return records, launches
 
 
@@ -861,12 +1335,15 @@ def main() -> int:
                     if "entry function" in l or "registers" in l or "spill" in l],
           # the bf16 kernel's shared memory is dynamic, outside ptxas's report
           "bf16_dynamic_smem_bytes": {
-              f"mha_box, L={len(LEVELS[2720])}": attn_lib.dtlr_box_attn_bf16_smem(1, len(LEVELS[2720])),
-              "mha": attn_lib.dtlr_box_attn_bf16_smem(0, 1)},
+              f"mha_box, L={len(LEVELS[2720])}": attn_lib.dtlr_box_attn_bf16_smem(
+                  1, len(LEVELS[2720]), 0),
+              "mha": attn_lib.dtlr_box_attn_bf16_smem(0, 1, 0),
+              "mha_masked": attn_lib.dtlr_box_attn_bf16_smem(0, 1, 1)},
           "sass_tensor_core_instructions": sass,
           "seconds": time.perf_counter() - t0})
+    # three bf16 instantiations: with the prior, without it, and masked
     bf16_kernels = [n for fn, n in sass.items() if "bf16" in fn]
-    if len(bf16_kernels) != 2 or not all(n["HMMA"] + n["HGMMA"] > 0 for n in bf16_kernels):
+    if len(bf16_kernels) != 3 or not all(n["HMMA"] + n["HGMMA"] > 0 for n in bf16_kernels):
         raise AssertionError(f"the bf16 attention kernels do not run on the tensor cores: {sass}")
 
     t0 = time.perf_counter()
@@ -887,6 +1364,8 @@ def main() -> int:
 
     train_records, train_launches = phase_train(card)
 
+    detect_records, detect_launches = phase_detect(card)
+
     t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
@@ -894,25 +1373,29 @@ def main() -> int:
 
     # each kernel at its main path's shape, dtype and layout: the attention
     # in the recipe's bfloat16 on the decoder's strided views, the gather
-    # in the probe; launches of this slice's main path, the bf16 train
-    # steps (the attention), and the probe (the gather), with every path's
-    # counts beside them
-    main_shape = {"mha_box": (2720, "bfloat16", "strided"), "mha": (900, "bfloat16", "strided"),
-                  "row_gather": (GATHER_S, "float32", None)}
-    main_launches = {**train_launches, **probe_launches}
-    by_path = {"mha_box": {"read_bf16_forward": launches["bfloat16"]["mha_box"],
-                           "read_fp32_forward": launches["float32"]["mha_box"],
-                           "train_bf16_12_steps": train_launches["mha_box"]},
-               "mha": {"read_bf16_forward": launches["bfloat16"]["mha"],
-                       "read_fp32_forward": launches["float32"]["mha"],
-                       "train_bf16_12_steps": train_launches["mha"]},
-               "row_gather": {"probe": probe_launches["row_gather"]}}
+    # in the probe. This slice's path is the detection step (the cross-
+    # attention at 1028 queries, the masked self-attention); the unmasked
+    # self-attention runs on the read and CTC paths (its launches: the 12
+    # CTC steps), the gather in the probe. Every path's counts beside them.
+    main_shape = {"mha_box": (2720, Q_DETECT, "bfloat16", "strided"),
+                  "mha": (900, Q, "bfloat16", "strided"),
+                  "mha_masked": (Q_DETECT, Q_DETECT, "bfloat16", "strided"),
+                  "row_gather": (GATHER_S, GATHER_Q, "float32", None)}
+    main_launches = {"mha_box": detect_launches["mha_box"], "mha": train_launches["mha"],
+                     "mha_masked": detect_launches["mha_masked"], **probe_launches}
+    paths = {"read_bf16_forward": launches["bfloat16"], "read_fp32_forward": launches["float32"],
+             "ctc_train_bf16_12_steps": train_launches,
+             "detect_bf16_12_steps": detect_launches}
+    by_path = {name: {path: counts[name] for path, counts in paths.items()}
+               for name in flash_attn.KERNELS}
+    by_path["row_gather"] = {"probe": probe_launches["row_gather"]}
+    replaces = {**REPLACES, "mha_masked": REPLACES["mha"]}
     kernels = []
     for name in (*flash_attn.KERNELS, *gather.KERNELS):
-        row = next(r for r in rows if (r["name"], r["S"], r["dtype"], r.get("layout"))
+        row = next(r for r in rows if (r["name"], r["S"], r.get("Q"), r["dtype"], r.get("layout"))
                    == (name, *main_shape[name]))
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "launches": main_launches[name],
+                        "replaces": replaces[name], "launches": main_launches[name],
                         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                "bound_ms", "bound_by", "library_ms")},
                         "launches_by_path": by_path[name]})

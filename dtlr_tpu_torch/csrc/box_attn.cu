@@ -6,7 +6,31 @@
 //   d2 = ((px_s - cx_l) * ihw_l)^2 + ((py_s - cy_l) * ihh_l)^2,  l = level of key s
 //
 // Two kernels, chosen by the inputs' type; each has a prior and a no-prior
-// instantiation.
+// instantiation, and the no-prior one a masked instantiation as well.
+//
+// The mask (the self-attention of a detection training step): the
+// contrastive denoising (CDN) queries go before the 900 matching queries,
+// and the matching queries may not see them, nor one denoising group
+// another. It arrives as one int32 group per query, used for rows and keys
+// alike (Q = S): a score (row r, key c) is blocked when g[c] >= 0 and
+// g[c] != g[r] (dtlr_tpu_torch/models/cdn.py). This replaces, besides
+// `_mha_kernel` (dtlr_tpu/ops/flash_attn.py:174, launched :267), the
+// materialized masked attention JAX runs there, with its (Q, Q) scores and
+// jnp.where(blocked, finfo.min, logits) (dtlr_tpu/models/layers.py:184-195).
+// What it costs: the key groups ride the cp.async ring beside key_bias (4
+// bytes a key); a warp reads its tile's 64 key groups once and decides: a
+// tile whose keys all carry -1 (every matching key) runs the unmasked
+// code; a tile whose keys all carry one group that none of the warp's 16
+// rows has is skipped outright (the 900 matching rows never touch the
+// 128-query denoising prefix's tiles); any other tile pays one compare and
+// one select per score (a blocked score becomes -inf, whose exponent is 0;
+// the running max starts at a finite -1e30, so a row whose whole tile is
+// blocked rescales by 1 and stays finite). What bounds it is what bounds the
+// unmasked kernel, the per-score work, over the pairs it computes: at the
+// detection step's Q = S = 1028 with one group of 128, 89% of the pairs. No
+// (Q, Q) tensor exists: at D=32 the per-score instructions set the time, and
+// a byte mask would add a load per score. A null group pointer selects the
+// unmasked instantiations, whose code is unchanged.
 //
 // bf16 inputs (the recipe's compute dtype, the main path): tensor cores.
 // What bounds it on this card: at the decoder's shapes (B=8, M=8, Q=900,
@@ -91,7 +115,7 @@ constexpr int KPW = BK / WARPS;   // keys per warp per tile
 // (lane, lane + 32) with their running max, normalizer and accumulator in
 // registers. The warps' partial softmaxes are merged in shared memory in a
 // fixed order.
-template <bool PRIOR>
+template <bool PRIOR, bool MASK>
 __global__ void __launch_bounds__(THREADS)
 box_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ key_bias,
@@ -99,13 +123,15 @@ box_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ ihw, const float* __restrict__ ihh,
                     const int* __restrict__ level, const float* __restrict__ px,
                     const float* __restrict__ py, const float* __restrict__ gamma,
-                    float* __restrict__ out, Layout lay, int Q, int S, int L, float scale) {
+                    const int* __restrict__ group, float* __restrict__ out, Layout lay, int Q,
+                    int S, int L, float scale) {
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
   __shared__ float kbias[BK];
   __shared__ float kpx[BK];
   __shared__ float kpy[BK];
   __shared__ int klvl[BK];
+  __shared__ int kgrp[MASK ? BK : 1];
   __shared__ float box[PRIOR ? MAX_L * 4 : 1][BQ];  // [level*4 + {cx,cy,ihw,ihh}][query]
   __shared__ float part_max[WARPS][BQ];
   __shared__ float part_sum[WARPS][BQ];
@@ -127,9 +153,11 @@ box_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float acc[QPT][D];
   float run_max[QPT];
   float run_sum[QPT];
+  int qgrp[QPT];  // the rows' CDN groups (MASK)
 #pragma unroll
   for (int i = 0; i < QPT; ++i) {
     const int qi = q0 + lane + 32 * i;
+    if constexpr (MASK) qgrp[i] = qi < Q ? group[qi] : -2;
     const float* qrow = qg + (qi < Q ? qi : 0) * lay.q.r;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -166,6 +194,7 @@ box_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     for (int t = tid; t < n; t += THREADS) {
       kbias[t] = kbg[s0 + t];
+      if constexpr (MASK) kgrp[t] = group[s0 + t];
       if constexpr (PRIOR) {
         kpx[t] = px[s0 + t];
         kpy[t] = py[s0 + t];
@@ -205,9 +234,12 @@ box_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       const float bias = kbias[j];
       const float4* vrow = reinterpret_cast<const float4*>(vs[j]);
+      int gk = -1;
+      if constexpr (MASK) gk = kgrp[j];
 #pragma unroll
       for (int i = 0; i < QPT; ++i) {
-        const float si = s[i] + bias;
+        float si = s[i] + bias;
+        if (MASK && gk >= 0 && gk != qgrp[i]) si = -INFINITY;  // exp gives 0
         if (si > run_max[i]) {  // new running max: rescale what was summed
           const float a = __expf(run_max[i] - si);
           run_sum[i] *= a;
@@ -362,11 +394,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // keys past S are zero-filled from the tile's first row (their scores are
 // masked, and zero V rows keep 0 * V finite).
 static_assert(BK * 4 % THREADS == 0, "whole 16-byte chunks of K and V per thread");
-template <bool PRIOR, bool RAGGED>
-__device__ __forceinline__ void load_tile(Stage& st, const __nv_bfloat16* kg,
+template <bool PRIOR, bool MASK, bool RAGGED>
+__device__ __forceinline__ void load_tile(Stage& st, int2* grp, const __nv_bfloat16* kg,
                                           const __nv_bfloat16* vg, int k_r, int v_r,
                                           const float* kbg, const float* px, const float* py,
-                                          const int* level, int s0, int S, int tid) {
+                                          const int* level, const int* group, int s0, int S,
+                                          int tid) {
   const __nv_bfloat16* kt = kg + s0 * k_r;
   const __nv_bfloat16* vt = vg + s0 * v_r;
 #pragma unroll
@@ -383,6 +416,7 @@ __device__ __forceinline__ void load_tile(Stage& st, const __nv_bfloat16* kg,
     const bool ok = !RAGGED || s0 + j < S;
     const int s = ok ? s0 + j : s0;
     cp_async4(reinterpret_cast<float*>(st.kb) + j, kbg + s, ok);
+    if constexpr (MASK) cp_async4(reinterpret_cast<int*>(grp) + j, group + s, ok);
     if constexpr (PRIOR) {
       float* pxy = reinterpret_cast<float*>(st.pxy) + (j >> 1) * 4 + (j & 1);
       cp_async4(pxy, px + s, ok);
@@ -435,11 +469,11 @@ __device__ __forceinline__ void tile_logits(float (&sc)[NT][4], const Stage& st,
 // One 64-key tile (keys s0..) for this warp's 16 rows: S = Q K^T, logits,
 // online softmax, O += P V. The fifth n-tile of O multiplies P by a column
 // of ones: the row sums of the bf16 probabilities, the same ones P.V sums.
-template <bool PRIOR, bool RAGGED, bool NEG>
-__device__ __forceinline__ void tile_step(const Stage& st, const float4* box,
-                                          const uint32_t (&qf)[2][4], float (&o)[5][4],
-                                          float (&mrow)[2], float (&mlog)[2], int lane, int r0,
-                                          int s0, int S, float scale) {
+template <bool PRIOR, bool RAGGED, bool NEG, bool MASK>
+__device__ __forceinline__ void tile_step(const Stage& st, const float4* box, const int2* grp,
+                                          int ga, int gb, const uint32_t (&qf)[2][4],
+                                          float (&o)[5][4], float (&mrow)[2], float (&mlog)[2],
+                                          int lane, int r0, int s0, int S, float scale) {
   const int tq = lane & 3;
   float sc[NT][4];
 #pragma unroll
@@ -466,6 +500,19 @@ __device__ __forceinline__ void tile_step(const Stage& st, const float4* box,
       tile_logits<PRIOR, RAGGED, false, NEG>(sc, st, box, none, none, r0, tq, s0, S, scale);
   } else {
     tile_logits<PRIOR, RAGGED, true, NEG>(sc, st, box, none, none, r0, tq, s0, S, scale);
+  }
+  if constexpr (MASK) {
+    // blocked where the key's group is >= 0 and not the row's (ga for row
+    // r0, gb for r0 + 8): -inf, whose exponent below is 0
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int2 gk = grp[j * 4 + tq];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int g = (e & 1) ? gk.y : gk.x;
+        if (g >= 0 && g != ((e >> 1) ? gb : ga)) sc[j][e] = -INFINITY;
+      }
+    }
   }
 
   // row maxima: a tree over this lane's 16 scores of each row, then over
@@ -527,7 +574,7 @@ __device__ __forceinline__ void tile_step(const Stage& st, const float4* box,
 // One block per (128-query tile, head m, batch b); each of its eight warps
 // owns 16 query rows and walks all keys. Lane (g = lane/4, tq = lane%4)
 // holds rows g and g + 8 of the warp's 16 in the m16n8 fragments.
-template <bool PRIOR>
+template <bool PRIOR, bool MASK>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 box_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
@@ -535,11 +582,15 @@ box_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      const float* __restrict__ ihw, const float* __restrict__ ihh,
                      const int* __restrict__ level, const float* __restrict__ px,
                      const float* __restrict__ py, const float* __restrict__ gamma,
-                     float* __restrict__ out, Layout lay, int Q, int S, int L, float scale) {
-  // dynamic shared memory: the ring, then (prior) [level][query] {ax, ax*cx, ay, ay*cy}
+                     const int* __restrict__ group, float* __restrict__ out, Layout lay, int Q,
+                     int S, int L, float scale) {
+  static_assert(!(PRIOR && MASK), "the group mask is the self-attention's, without the prior");
+  // dynamic shared memory: the ring, then (prior) [level][query] {ax, ax*cx,
+  // ay, ay*cy}, or (mask) per stage the tile's key groups, packed by key pair
   extern __shared__ __align__(16) unsigned char smem[];
   Stage* ring = reinterpret_cast<Stage*>(smem);
   float4* box = reinterpret_cast<float4*>(smem + STAGES * sizeof(Stage));
+  int2* grps = reinterpret_cast<int2*>(smem + STAGES * sizeof(Stage));  // [STAGES][BK / 2]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -554,16 +605,19 @@ box_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const float* kbg = key_bias + (size_t)b * S;
   const int ntiles = (S + BK - 1) / BK;
 
-  auto load = [&](Stage& st, int t) {  // tile t into a stage, if there is one
+  auto load = [&](int stage, int t) {  // tile t into a stage, if there is one
     if (t >= ntiles) return;
+    int2* grp = grps + stage * (BK / 2);
     if ((t + 1) * BK <= S)
-      load_tile<PRIOR, false>(st, kg, vg, k_r, v_r, kbg, px, py, level, t * BK, S, tid);
+      load_tile<PRIOR, MASK, false>(ring[stage], grp, kg, vg, k_r, v_r, kbg, px, py, level,
+                                    group, t * BK, S, tid);
     else
-      load_tile<PRIOR, true>(st, kg, vg, k_r, v_r, kbg, px, py, level, t * BK, S, tid);
+      load_tile<PRIOR, MASK, true>(ring[stage], grp, kg, vg, k_r, v_r, kbg, px, py, level,
+                                   group, t * BK, S, tid);
   };
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
-    load(ring[t], t);
+    load(t, t);
     cp_async_commit();
   }
 
@@ -610,26 +664,64 @@ box_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   float mrow[2] = {-1e30f, -1e30f};
   float mlog[2] = {-1e30f * LOG2E, -1e30f * LOG2E};
   const bool live = q0 + warp * 16 < Q;
+  // the CDN groups of this lane's rows (rows past Q: -2, blocked from every
+  // denoising key, never stored)
+  int ga = -2, gb = -2;
+  if constexpr (MASK) {
+    const int qa = q0 + r0;
+    if (qa < Q) ga = group[qa];
+    if (qa + 8 < Q) gb = group[qa + 8];
+  }
 
   int ld = STAGES - 1;  // the stage the next tile loads into
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<STAGES - 2>();  // tile `it` has landed (this thread's copies)
     __syncthreads();              // ... everyone's, and tile it-1 is consumed
-    load(ring[ld], it + STAGES - 1);
+    load(ld, it + STAGES - 1);
     cp_async_commit();
     ld = ld + 1 == STAGES ? 0 : ld + 1;
     if (!live) continue;
     const Stage& st = ring[it % STAGES];
+    const int2* grp = grps + (it % STAGES) * (BK / 2);
     const int s0 = it * BK;
     const bool ragged = s0 + BK > S;
+    bool masked = false;
+    if constexpr (MASK) {
+      // the warp reads the tile's 64 key groups (two per lane). All -1 (the
+      // matching queries' keys), or all the one group every row has: nothing
+      // is blocked. All one group that none of the rows has: the tile adds
+      // nothing, skip it. Otherwise check every score.
+      const int2 gk = grp[lane];
+      if (!__all_sync(0xffffffffu, gk.x < 0 && gk.y < 0)) {
+        const int kmin = __reduce_min_sync(0xffffffffu, min(gk.x, gk.y));
+        const int kmax = __reduce_max_sync(0xffffffffu, max(gk.x, gk.y));
+        if (!ragged && kmin == kmax) {
+          if (__all_sync(0xffffffffu, ga != kmin && gb != kmin)) continue;
+          masked = !__all_sync(0xffffffffu, ga == kmin && gb == kmin);
+        } else {
+          masked = true;
+        }
+      }
+    }
+    if constexpr (MASK) {
+      if (masked) {  // every key's group checked, ragged or not
+        tile_step<PRIOR, true, false, true>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0,
+                                            s0, S, scale);
+        continue;
+      }
+    }
     if (!ragged && !neg)
-      tile_step<PRIOR, false, false>(st, box, qf, o, mrow, mlog, lane, r0, s0, S, scale);
+      tile_step<PRIOR, false, false, false>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0,
+                                            s0, S, scale);
     else if (!ragged)
-      tile_step<PRIOR, false, true>(st, box, qf, o, mrow, mlog, lane, r0, s0, S, scale);
+      tile_step<PRIOR, false, true, false>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0, s0,
+                                           S, scale);
     else if (!neg)
-      tile_step<PRIOR, true, false>(st, box, qf, o, mrow, mlog, lane, r0, s0, S, scale);
+      tile_step<PRIOR, true, false, false>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0, s0,
+                                           S, scale);
     else
-      tile_step<PRIOR, true, true>(st, box, qf, o, mrow, mlog, lane, r0, s0, S, scale);
+      tile_step<PRIOR, true, true, false>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0, s0,
+                                          S, scale);
   }
   cp_async_wait<0>();
   if (!live) return;
@@ -652,9 +744,10 @@ box_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }  // namespace tc
 
 // dynamic shared memory of the bf16 kernel: the ring, then (prior) L
-// levels of per-query box constants
-size_t bf16_smem(bool prior, int L) {
-  return tc::STAGES * sizeof(tc::Stage) + (prior ? (size_t)L * tc::BQ * sizeof(float4) : 0);
+// levels of per-query box constants or (mask) each stage's key groups
+size_t bf16_smem(bool prior, int L, bool mask) {
+  return tc::STAGES * sizeof(tc::Stage) + (prior ? (size_t)L * tc::BQ * sizeof(float4) : 0) +
+         (mask ? (size_t)tc::STAGES * (tc::BK / 2) * sizeof(int2) : 0);
 }
 
 struct Args {
@@ -662,29 +755,30 @@ struct Args {
   const float *key_bias, *cx, *cy, *ihw, *ihh;
   const int* level;
   const float *px, *py, *gamma;
+  const int* group;
   float* out;
 };
 
-template <bool PRIOR>
+template <bool PRIOR, bool MASK>
 cudaError_t launch(const Args& a, bool bf16, const Layout& lay, int B, int M, int Q, int S,
                    int L, cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)D);
   if (bf16) {
     const dim3 grid((Q + tc::BQ - 1) / tc::BQ, M, B);
     // allow the most shared memory any L needs, once
-    static const cudaError_t sized =
-        cudaFuncSetAttribute(tc::box_attn_bf16_kernel<PRIOR>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bf16_smem(PRIOR, MAX_L));
+    static const cudaError_t sized = cudaFuncSetAttribute(
+        tc::box_attn_bf16_kernel<PRIOR, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bf16_smem(PRIOR, MAX_L, MASK));
     if (sized != cudaSuccess) return sized;
-    tc::box_attn_bf16_kernel<PRIOR><<<grid, tc::THREADS, bf16_smem(PRIOR, L), stream>>>(
+    tc::box_attn_bf16_kernel<PRIOR, MASK><<<grid, tc::THREADS, bf16_smem(PRIOR, L, MASK), stream>>>(
         (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k, (const __nv_bfloat16*)a.v,
-        a.key_bias, a.cx, a.cy, a.ihw, a.ihh, a.level, a.px, a.py, a.gamma, a.out, lay, Q, S, L,
-        scale);
+        a.key_bias, a.cx, a.cy, a.ihw, a.ihh, a.level, a.px, a.py, a.gamma, a.group, a.out, lay,
+        Q, S, L, scale);
   } else {
     const dim3 grid((Q + f32::BQ - 1) / f32::BQ, M, B);
-    f32::box_attn_f32_kernel<PRIOR><<<grid, f32::THREADS, 0, stream>>>(
+    f32::box_attn_f32_kernel<PRIOR, MASK><<<grid, f32::THREADS, 0, stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v, a.key_bias, a.cx, a.cy, a.ihw,
-        a.ihh, a.level, a.px, a.py, a.gamma, a.out, lay, Q, S, L, scale);
+        a.ihh, a.level, a.px, a.py, a.gamma, a.group, a.out, lay, Q, S, L, scale);
   }
   return cudaGetLastError();
 }
@@ -692,15 +786,18 @@ cudaError_t launch(const Args& a, bool bf16, const Layout& lay, int B, int M, in
 }  // namespace
 
 // strides: 12 element strides, (batch, head, row) of q, k, v and out in
-// that order; D has unit stride in all four.
+// that order; D has unit stride in all four. group: null, or (without the
+// prior, Q = S) the (Q,) int32 CDN groups of the rows and keys.
 extern "C" int dtlr_box_attn_fwd(const void* q, const void* k, const void* v,
                                  const void* key_bias, const void* cx, const void* cy,
                                  const void* ihw, const void* ihh, const void* level,
-                                 const void* px, const void* py, const void* gamma, void* out,
-                                 int B, int M, int Q, int S, int D_, int L, int bf16, int prior,
-                                 const long long* strides, void* stream) {
+                                 const void* px, const void* py, const void* gamma,
+                                 const void* group, void* out, int B, int M, int Q, int S, int D_,
+                                 int L, int bf16, int prior, const long long* strides,
+                                 void* stream) {
   if (D_ != D || L < 1 || L > MAX_L || Q < 1 || S < 1 || B < 1 || M < 1)
     return (int)cudaErrorInvalidValue;
+  if (group != nullptr && (prior || Q != S)) return (int)cudaErrorInvalidValue;
   Layout lay;
   Strides* dst[4] = {&lay.q, &lay.k, &lay.v, &lay.out};
   for (int i = 0; i < 4; ++i) *dst[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
@@ -716,10 +813,12 @@ extern "C" int dtlr_box_attn_fwd(const void* q, const void* k, const void* v,
                (const float*)px,
                (const float*)py,
                (const float*)gamma,
+               (const int*)group,
                (float*)out};
-  const cudaError_t err =
-      prior ? launch<true>(a, bf16 != 0, lay, B, M, Q, S, L, (cudaStream_t)stream)
-            : launch<false>(a, bf16 != 0, lay, B, M, Q, S, L, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = prior              ? launch<true, false>(a, bf16 != 0, lay, B, M, Q, S, L, st)
+                          : group != nullptr ? launch<false, true>(a, bf16 != 0, lay, B, M, Q, S, L, st)
+                                             : launch<false, false>(a, bf16 != 0, lay, B, M, Q, S, L, st);
   return (int)err;
 }
 
@@ -727,4 +826,6 @@ extern "C" int dtlr_box_attn_head_dim() { return D; }
 
 // bytes of dynamic shared memory a bf16 block takes (ptxas reports only
 // static shared memory)
-extern "C" int dtlr_box_attn_bf16_smem(int prior, int L) { return (int)bf16_smem(prior != 0, L); }
+extern "C" int dtlr_box_attn_bf16_smem(int prior, int L, int mask) {
+  return (int)bf16_smem(prior != 0, L, mask != 0);
+}

@@ -1,12 +1,17 @@
-"""DINO character detector without CDN: the inference and CTC finetuning
-forward (counterpart of
-dtlr_tpu/models/dino.py for the flagship recipe: ResNet-50 with
-GroupNorm, windowed encoder, dense decoder cross-attention with the box
-prior).
+"""DINO character detector (counterpart of dtlr_tpu/models/dino.py for the
+flagship recipe: ResNet-50 with GroupNorm, windowed encoder, dense decoder
+cross-attention with the box prior).
 
-``DINO.forward(images, valid_hw)`` takes ImageNet-normalized (B, H, W, 3)
-images, as the JAX module does, and returns the same dict: pred_logits,
-pred_boxes, aux_outputs, interm_outputs, interm_outputs_for_matching_pre.
+``DINO.forward(images, valid_hw, targets=None, train=False, cdn_noise=None)``
+takes ImageNet-normalized (B, H, W, 3) images, as the JAX module does, and
+returns the same dict: pred_logits, pred_boxes, aux_outputs,
+interm_outputs, interm_outputs_for_matching_pre. With ``train``,
+``cfg.use_dn`` and ``targets`` (labels (B, N), boxes (B, N, 4) cxcywh,
+valid (B, N)) the decoder also runs the contrastive denoising queries
+(models/cdn.py) before the matching ones, and the dict gains their
+outputs (``dn_outputs`` with ``aux_outputs``) and ``dn_meta``, as at
+dtlr_tpu/models/dino.py:245-259,299-312; ``cdn_noise`` is the generator
+of their noise or the draws themselves (``CdnDraws``).
 Submodules carry the flax parameter names, so that weights.py maps the
 checkpoint's leaves by name.
 """
@@ -22,6 +27,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..utils.boxes import inverse_sigmoid
+from .cdn import CdnDraws, cdn_query_groups, prepare_cdn
 from .layers import MLP, Conv, Dense, GroupNorm
 from .position_encoding import sine_position_embedding_hw
 from .resnet import ResNet
@@ -46,6 +52,11 @@ class DinoConfig:
     dn_labelbook_size: Optional[int] = None
     #: "bfloat16" (the recipe, dtlr_tpu/configs/Latin.py:91) or "float32"
     compute_dtype: str = "bfloat16"
+    #: contrastive denoising in training (dtlr_tpu/configs/Latin.py:77-80)
+    use_dn: bool = True
+    dn_number: int = 100
+    dn_box_noise_scale: float = 0.4
+    dn_label_noise_ratio: float = 0.5
 
     @property
     def dtype(self) -> torch.dtype:
@@ -116,8 +127,8 @@ class DINO(nn.Module):
         self.bbox_embed = BboxHead(C, dt)
         self.enc_out_class_embed = ClassHead(C, num_classes, dtype=dt)
         self.enc_out_bbox_embed = BboxHead(C, dt)
-        # the CDN label encoder: training only, kept so that every leaf of
-        # a checkpoint has a home
+        # the CDN label encoder: the denoising queries' content (training
+        # only)
         labelbook = cfg.dn_labelbook_size
         if labelbook is None:
             labelbook = num_classes + 1
@@ -143,17 +154,38 @@ class DINO(nn.Module):
             poss.append(sine_position_embedding_hw(m, num_pos_feats=cfg.hidden_dim // 2))
         return srcs, masks, poss
 
-    def forward(self, images: torch.Tensor, valid_hw: torch.Tensor) -> dict:
+    def forward(self, images: torch.Tensor, valid_hw: torch.Tensor,
+                targets: Optional[dict] = None, train: bool = False,
+                cdn_noise: Optional[CdnDraws | torch.Generator] = None) -> dict:
+        cfg = self.cfg
         srcs, masks, poss = self.levels(images, valid_hw)
+        use_cdn = train and cfg.use_dn and targets is not None
+        dn_tgt = dn_refpoint = query_group = meta = None
+        if use_cdn:
+            dn_tgt, dn_refpoint, meta = prepare_cdn(
+                targets["labels"], targets["boxes"], targets["valid"], self.label_enc,
+                cfg.dn_number, cfg.dn_label_noise_ratio, cfg.dn_box_noise_scale,
+                self.num_classes, cdn_noise)
+            query_group = cdn_query_groups(cfg.num_queries, meta, images.device)
         hs, references, hs_enc, ref_enc, init_box_proposal = self.transformer(
             srcs, masks, poss, self.enc_out_class_embed, self.enc_out_bbox_embed,
-            self.bbox_embed)
+            self.bbox_embed, dn_refpoint, dn_tgt, query_group)
         n_dec = hs.shape[0]
         delta = self.bbox_embed(hs).float()
         outputs_coord = (delta + inverse_sigmoid(references[:n_dec])).sigmoid()
         outputs_class = self.class_embed(hs).float()
         interm_class = self.enc_out_class_embed(hs_enc[-1]).float()
-        return {
+        out = {}
+        if use_cdn:
+            pad = meta.pad_size
+            dn_class, dn_coord = outputs_class[:, :, :pad], outputs_coord[:, :, :pad]
+            outputs_class, outputs_coord = outputs_class[:, :, pad:], outputs_coord[:, :, pad:]
+            out["dn_meta"] = meta
+            out["dn_outputs"] = {
+                "pred_logits": dn_class[-1], "pred_boxes": dn_coord[-1],
+                "aux_outputs": [{"pred_logits": dn_class[i], "pred_boxes": dn_coord[i]}
+                                for i in range(n_dec - 1)]}
+        out.update({
             "pred_logits": outputs_class[-1],
             "pred_boxes": outputs_coord[-1],
             "aux_outputs": [{"pred_logits": outputs_class[i],
@@ -162,7 +194,8 @@ class DINO(nn.Module):
                                "pred_boxes": ref_enc[-1]},
             "interm_outputs_for_matching_pre": {"pred_logits": interm_class,
                                                 "pred_boxes": init_box_proposal},
-        }
+        })
+        return out
 
 
 def build_dino(cfg: DinoConfig = FLAGSHIP, num_classes: int = 65,

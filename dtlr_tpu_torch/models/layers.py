@@ -4,9 +4,10 @@ and multi-head attention (counterpart of dtlr_tpu/models/layers.py).
 flax's ``DenseGeneral((M, D))`` q/k/v projections are ``nn.Linear(C, M*D)``
 here and its ``out_proj`` over the (M, D) axes is ``nn.Linear(M*D, C)``;
 weights.py reshapes the kernels accordingly. The attention core is
-``flash_mha``: the decoder is the only user, and without CDN (inference
-and CTC finetuning) neither of its attentions takes a mask, only key
-padding and the box prior.
+``flash_mha``: the decoder is the only user. Its cross-attention takes key
+padding and the box prior; its self-attention takes the CDN group mask
+in a detection training step and no mask otherwise (inference, CTC
+finetuning).
 
 Compute dtype: a flax ``Dense``/``Conv`` with ``dtype=bfloat16`` casts its
 input, kernel and bias to bf16 and returns bf16, while its parameters
@@ -104,7 +105,8 @@ class MultiHeadAttention(nn.Module):
     """Multi-head attention with q/k/v/out projections around
     ``flash_mha`` (the hand-written kernel on CUDA tensors, its plain
     version on the CPU): key padding comes as the additive ``key_bias``
-    (B, S), the box prior as a ``BoxPrior``. The projections compute in
+    (B, S), the box prior as a ``BoxPrior``, the CDN mask of the
+    self-attention as (Q,) int32 ``query_group``. The projections compute in
     ``dtype``; ``flash_mha`` takes their bf16 or fp32 heads and returns
     fp32, cast back to ``dtype`` before ``out_proj`` as in
     dtlr_tpu/models/layers.py:183."""
@@ -119,7 +121,8 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Dense(d_model, d_model, dtype=dtype)
 
     def forward(self, q, k, v, key_bias: Optional[torch.Tensor] = None,
-                box_prior: Optional[BoxPrior] = None) -> torch.Tensor:
+                box_prior: Optional[BoxPrior] = None,
+                query_group: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, Lq, C = q.shape
         S = k.shape[1]
         M = self.n_heads
@@ -131,7 +134,7 @@ class MultiHeadAttention(nn.Module):
         vh = self.v_proj(v).view(B, S, M, D).transpose(1, 2)
         if key_bias is None:
             key_bias = torch.zeros(B, S, dtype=torch.float32, device=q.device)
-        out = flash_mha(qh, kh, vh, key_bias, box_prior)
+        out = flash_mha(qh, kh, vh, key_bias, box_prior, query_group)
         # on CUDA ``out`` is laid out as (B, Q, M, D) and the cast keeps that
         # layout, so the transpose and reshape below are views
         return self.out_proj(out.to(self.compute_dtype).transpose(1, 2).reshape(B, Lq, C))

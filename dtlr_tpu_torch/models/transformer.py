@@ -4,13 +4,17 @@ with ``encoder_type="windowed"``, ``decoder_ca="dense"`` and
 ``dense_box_bias=True``: the flagship recipe).
 
 Every decoder attention goes through ``flash_mha``: the cross-attention
-with the box prior, and the self-attention, which has no mask at
-inference or in CTC finetuning (no CDN queries), without it. On CUDA
-both run the hand-written kernel.
+with the box prior, and the self-attention without it. In a detection
+training step the decoder also takes the CDN prefix (the denoising
+queries' boxes and label embeddings, dtlr_tpu/models/transformer.py:427-434)
+before the selected queries, and its self-attention the CDN group mask
+(``query_group``); at inference and in CTC finetuning there is neither.
+On CUDA both attentions run the hand-written kernel.
 
 Gradients stop where JAX's do (dtlr_tpu/models/transformer.py:423,469):
-the decoder starts from the selected boxes detached, and each layer
-refines the previous layer's box detached, while the returned
+the decoder starts from the selected boxes detached (the CDN boxes carry
+no parameter and are not detached), and each layer refines the previous
+layer's box detached, while the returned
 references keep each layer's undetached box and ``ref_enc`` the
 undetached selection. So a loss reaches a layer's box head only through
 that layer's own outputs.
@@ -23,7 +27,7 @@ to float32 before they meet the float32 anchors and references.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -100,9 +104,9 @@ class DecoderLayer(nn.Module):
         self.norm3 = LayerNorm(d_model)
 
     def forward(self, tgt, query_pos, reference_points_input, memory,
-                spatial_shapes, key_bias, memory_pos):
+                spatial_shapes, key_bias, memory_pos, query_group=None):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, query_group=query_group))
         prior = make_box_prior(reference_points_input, spatial_shapes,
                                self.ca_box_gamma.exp())
         t2 = self.cross_attn(tgt + query_pos, memory + memory_pos, memory,
@@ -142,9 +146,17 @@ class DeformableTransformer(nn.Module):
 
     def forward(self, srcs: List[torch.Tensor], masks: List[torch.Tensor],
                 pos_embeds: List[torch.Tensor], enc_class_head: nn.Module,
-                enc_bbox_head: nn.Module, bbox_head: nn.Module):
+                enc_bbox_head: nn.Module, bbox_head: nn.Module,
+                dn_refpoint: Optional[torch.Tensor] = None,
+                dn_tgt: Optional[torch.Tensor] = None,
+                query_group: Optional[torch.Tensor] = None):
         """srcs, pos_embeds per level (B, H, W, C); masks (B, H, W) True at
-        padding; ``bbox_head`` is the box head shared by all decoder layers."""
+        padding; ``bbox_head`` is the box head shared by all decoder layers.
+        With CDN: ``dn_refpoint`` (B, pad, 4) unsigmoided boxes and
+        ``dn_tgt`` (B, pad, C) label embeddings go before the selected
+        queries, and ``query_group`` (pad + nq,) int32 is every
+        self-attention's group mask; hs and references then hold the
+        prefix's rows first."""
         B = srcs[0].shape[0]
         C = self.d_model
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
@@ -182,17 +194,21 @@ class DeformableTransformer(nn.Module):
         # the decoder starts from the selected boxes with their gradient
         # stopped; only ref_enc (below) keeps it, as JAX's
         # stop_gradient(refpoint_embed_undetach) does
-        reference_points = refpoint_embed.detach().sigmoid()
+        reference_points = refpoint_embed.detach()
+        out_dec = self.tgt_embed[None].expand(B, -1, -1).to(self.compute_dtype)
+        if dn_refpoint is not None:
+            reference_points = torch.cat([dn_refpoint.float(), reference_points], dim=1)
+            out_dec = torch.cat([dn_tgt.to(self.compute_dtype), out_dec], dim=1)
+        reference_points = reference_points.sigmoid()
         ref_points = [reference_points]
         intermediate = []
-        out_dec = self.tgt_embed[None].expand(B, -1, -1).to(self.compute_dtype)
         for lid in range(self.num_decoder_layers):
             ref_input = reference_points[:, :, None, :] * ratios4  # (B, nq, L, 4)
             query_pos = self.ref_point_head(
                 gen_sineembed_for_position(ref_input[:, :, 0, :], dim=C // 2))
             out_dec = getattr(self, f"decoder_layer_{lid}")(
                 out_dec, query_pos, ref_input, memory, spatial_shapes, key_bias,
-                pos_flat)
+                pos_flat, query_group)
             delta = bbox_head(out_dec).float()
             new_ref = (delta + inverse_sigmoid(reference_points)).sigmoid()
             # the next layer refines a stopped box; the outputs keep new_ref
@@ -200,7 +216,7 @@ class DeformableTransformer(nn.Module):
             ref_points.append(new_ref)
             intermediate.append(self.decoder_norm(out_dec))
 
-        hs = torch.stack(intermediate)        # (n_dec, B, nq, C)
-        references = torch.stack(ref_points)  # (n_dec + 1, B, nq, 4) sigmoided
+        hs = torch.stack(intermediate)        # (n_dec, B, [pad +] nq, C)
+        references = torch.stack(ref_points)  # (n_dec + 1, B, [pad +] nq, 4) sigmoided
         return hs, references, tgt_undetach[None], refpoint_embed.sigmoid()[None], \
             init_box_proposal

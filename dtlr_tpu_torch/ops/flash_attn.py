@@ -4,9 +4,11 @@ dtlr_tpu/ops/flash_attn.py).
 ``flash_mha`` is the decoder's attention core. On a CUDA tensor it
 launches the hand-written kernel of ``csrc/box_attn.cu`` (the port of the
 Pallas kernels ``_mha_box_kernel`` and, with ``prior=None``,
-``_mha_kernel``); on a CPU tensor it runs ``dense_reference``, the plain
-PyTorch version of the same math. bf16 inputs run on the tensor cores,
-fp32 inputs on the CUDA cores. The kernel reads q, k and v through their
+``_mha_kernel``, the latter also under the CDN group mask of a detection
+training step's self-attention, which JAX runs materialized,
+dtlr_tpu/models/layers.py:184-195); on a CPU tensor it runs
+``dense_reference``, the plain PyTorch version of the same math. bf16
+inputs run on the tensor cores, fp32 inputs on the CUDA cores. The kernel reads q, k and v through their
 batch, head and row strides (``kernel_strides``), so the decoder hands it
 its projections without copies. It is compiled with ``nvcc`` for sm_90a
 at first use into ``dtlr_tpu_torch/build/`` and bound with ctypes
@@ -39,9 +41,11 @@ SOURCE = os.path.join(_build.CSRC, "box_attn.cu")
 HEAD_DIM = 32  # the kernel's compiled head dimension
 MAX_LEVELS = 8
 
-#: the kernel's two instantiations (with and without the box prior), the
-#: keys of ``flash_mha.launches``
-KERNELS = ("mha_box", "mha")
+#: the kernel's instantiations, the keys of ``flash_mha.launches``: with
+#: the box prior (the decoder's cross-attention), without it (the
+#: self-attention), and without it under the CDN group mask (the
+#: self-attention of a detection training step)
+KERNELS = ("mha_box", "mha", "mha_masked")
 
 
 class BoxPrior(NamedTuple):
@@ -91,10 +95,21 @@ def make_box_prior(reference_points_input: torch.Tensor,
     )
 
 
-def dense_reference(qh, kh, vh, key_bias, prior: Optional[BoxPrior]):
+def group_blocked(query_group: torch.Tensor) -> torch.Tensor:
+    """(Q, Q) bool, True where row r may not see key c: ``group[c] >= 0
+    and group[c] != group[r]`` (the CDN mask, models/cdn.py)."""
+    g = query_group.long()
+    return (g[None, :] >= 0) & (g[None, :] != g[:, None])
+
+
+def dense_reference(qh, kh, vh, key_bias, prior: Optional[BoxPrior],
+                    query_group: Optional[torch.Tensor] = None):
     """The kernel's math with the (B, M, Q, S) scores materialized: the
     kernel's plain version and the CPU path. qh (B, M, Q, D), kh/vh
-    (B, M, S, D), key_bias (B, S) additive. Returns (B, M, Q, D) fp32."""
+    (B, M, S, D), key_bias (B, S) additive, query_group (Q,) int32 with
+    Q = S: a blocked score takes float32's lowest value, as JAX's
+    materialized masked attention does (dtlr_tpu/models/layers.py:184-195).
+    Returns (B, M, Q, D) fp32."""
     D = qh.shape[-1]
     logits = qh.float() @ kh.float().transpose(-1, -2) / math.sqrt(D)
     if prior is not None:
@@ -104,6 +119,8 @@ def dense_reference(qh, kh, vh, key_bias, prior: Optional[BoxPrior]):
         d2 = dx * dx + dy * dy
         logits = logits - (0.5 * prior.gamma)[None, :, None, None] * d2[:, None]
     logits = logits + key_bias.float()[:, None, None, :]
+    if query_group is not None:
+        logits = logits.masked_fill(group_blocked(query_group), torch.finfo(torch.float32).min)
     return logits.softmax(-1) @ vh.float()
 
 
@@ -143,7 +160,8 @@ def kernel_strides(name: str, t: torch.Tensor, shape, dtypes, device) -> Tuple[i
 
 
 def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-            key_bias: torch.Tensor, prior: Optional[BoxPrior]) -> torch.Tensor:
+            key_bias: torch.Tensor, prior: Optional[BoxPrior],
+            query_group: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Check the CUDA inputs and launch the kernel once. qh/kh/vh may be
     strided views (the decoder's (B, S, M, D) projections transposed);
     the result is a (B, M, Q, D) view of a (B, Q, M, D) fp32 tensor."""
@@ -159,6 +177,12 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                + kernel_strides("vh", vh, (B, M, S, D), (qh.dtype,), dev)
                + kernel_strides("out", out, (B, M, Q, D), (torch.float32,), dev))
     _check("key_bias", key_bias, (B, S), (torch.float32,), dev)
+    if query_group is not None:
+        if prior is not None:
+            raise ValueError("the kernel takes the group mask without the box prior only")
+        if Q != S:
+            raise ValueError(f"the group mask is the self-attention's: Q = S, got {Q} and {S}")
+        _check("query_group", query_group, (Q,), (torch.int32,), dev)
     f32 = (torch.float32,)
     if prior is not None:
         L = prior.cx.shape[-1]
@@ -178,30 +202,35 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.dtlr_box_attn_fwd(
             qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), key_bias.data_ptr(),
-            *box_ptrs, out.data_ptr(), B, M, Q, S, D, L,
+            *box_ptrs, None if query_group is None else query_group.data_ptr(),
+            out.data_ptr(), B, M, Q, S, D, L,
             int(qh.dtype == torch.bfloat16), int(prior is not None),
             (ctypes.c_longlong * 12)(*strides), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"box_attn kernel launch failed with CUDA error {err}")
-    flash_mha.launches["mha_box" if prior is not None else "mha"] += 1
+    name = "mha_box" if prior is not None else "mha" if query_group is None else "mha_masked"
+    flash_mha.launches[name] += 1
     return out
 
 
 #: positions of qh, kh, vh and the prior's cx, cy, ihw, ihh, gamma among
-#: (qh, kh, vh, key_bias, *BoxPrior): the inputs that take a gradient
-_DIFFERENTIABLE = (0, 1, 2, 4, 5, 6, 7, 11)
+#: (qh, kh, vh, key_bias, query_group, *BoxPrior): the inputs that take a
+#: gradient
+_DIFFERENTIABLE = (0, 1, 2, 5, 6, 7, 8, 12)
 
 
 class RecomputeGrad(torch.autograd.Function):
-    """``fwd(qh, kh, vh, key_bias, prior)`` (the kernel) in the forward; the
-    backward recomputes through ``dense_reference`` and differentiates it
-    (JAX's ``_flash_mha_bwd``). Call as
-    ``RecomputeGrad.apply(fwd, qh, kh, vh, key_bias, *prior)``."""
+    """``fwd(qh, kh, vh, key_bias, prior, query_group)`` (the kernel) in the
+    forward; the backward recomputes through ``dense_reference`` and
+    differentiates it (JAX's ``_flash_mha_bwd``). Call as
+    ``RecomputeGrad.apply(fwd, qh, kh, vh, key_bias, query_group, *prior)``
+    with ``query_group`` None without the CDN mask and no prior fields
+    without the prior (the groups take no gradient)."""
 
     @staticmethod
-    def forward(ctx, fwd, qh, kh, vh, key_bias, *prior):
-        ctx.save_for_backward(qh, kh, vh, key_bias, *prior)
-        return fwd(qh, kh, vh, key_bias, BoxPrior(*prior) if prior else None)
+    def forward(ctx, fwd, qh, kh, vh, key_bias, query_group, *prior):
+        ctx.save_for_backward(qh, kh, vh, key_bias, query_group, *prior)
+        return fwd(qh, kh, vh, key_bias, BoxPrior(*prior) if prior else None, query_group)
 
     #: backward calls since ``reset_launches`` (each recomputes once)
     backwards = 0
@@ -213,9 +242,10 @@ class RecomputeGrad(torch.autograd.Function):
         want = [i for i in _DIFFERENTIABLE
                 if i < len(saved) and ctx.needs_input_grad[1 + i]]
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(i in want) for i, t in enumerate(saved)]
-            prior = BoxPrior(*leaves[4:]) if len(leaves) > 4 else None
-            out = dense_reference(*leaves[:4], prior)
+            leaves = [None if t is None else t.detach().requires_grad_(i in want)
+                      for i, t in enumerate(saved)]
+            prior = BoxPrior(*leaves[5:]) if len(leaves) > 5 else None
+            out = dense_reference(*leaves[:4], prior, leaves[4])
             grads = torch.autograd.grad(out, [leaves[i] for i in want], grad_out) if want else ()
         result = [None] * len(saved)
         for i, g in zip(want, grads):
@@ -224,22 +254,25 @@ class RecomputeGrad(torch.autograd.Function):
 
 
 def flash_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
-              key_bias: torch.Tensor, prior: Optional[BoxPrior] = None) -> torch.Tensor:
+              key_bias: torch.Tensor, prior: Optional[BoxPrior] = None,
+              query_group: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused attention: out (B, M, Q, D) fp32 from qh (B, M, Q, D), kh/vh
     (B, M, S, D) in fp32 or bf16, additive key_bias (B, S) fp32 (-1e9 at
-    padded keys) and an optional BoxPrior. CPU tensors take
-    ``dense_reference``; CUDA tensors launch the kernel, differentiably
-    (``RecomputeGrad``), or raise. On CUDA qh/kh/vh may be strided views
-    (``kernel_strides`` says which), and the result is a view whose
-    storage is laid out as (B, Q, M, D)."""
+    padded keys), an optional BoxPrior, or (self-attention, Q = S, no
+    prior) an optional (Q,) int32 ``query_group`` that blocks row r from
+    key c where ``group[c] >= 0 and group[c] != group[r]`` (the CDN mask).
+    CPU tensors take ``dense_reference``; CUDA tensors launch the kernel,
+    differentiably (``RecomputeGrad``), or raise. On CUDA qh/kh/vh may be
+    strided views (``kernel_strides`` says which), and the result is a
+    view whose storage is laid out as (B, Q, M, D)."""
     if qh.device.type == "cpu":
-        return dense_reference(qh, kh, vh, key_bias, prior)
+        return dense_reference(qh, kh, vh, key_bias, prior, query_group)
     if qh.device.type != "cuda":
         raise ValueError(f"flash_mha runs on cuda or cpu, got {qh.device}")
     inputs = (qh, kh, vh, key_bias, *(prior or ()))
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return RecomputeGrad.apply(_launch, *inputs)
-    return _launch(qh, kh, vh, key_bias, prior)  # nothing to differentiate
+        return RecomputeGrad.apply(_launch, qh, kh, vh, key_bias, query_group, *(prior or ()))
+    return _launch(qh, kh, vh, key_bias, prior, query_group)  # nothing to differentiate
 
 
 #: launches of the CUDA kernel by instantiation; the plain version is
@@ -264,9 +297,9 @@ def build_library() -> dict:
 def load_library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.dtlr_box_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.dtlr_box_attn_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dtlr_box_attn_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.dtlr_box_attn_bf16_smem.restype = ctypes.c_int
     return lib

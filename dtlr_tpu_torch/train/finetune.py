@@ -35,7 +35,7 @@ from ..data.charset import load_charset_file, load_default_charset
 from ..eval.evaluate import load_lines
 from ..models.dino import FLAGSHIP, DinoConfig
 from . import checkpoints as ckpt_lib
-from .config import RECIPE, TrainConfig
+from .config import RECIPE
 from .engine import Trainer, line_batches
 
 
@@ -69,17 +69,19 @@ def _parse_value(text: str, kind):
     return kind(text)
 
 
-def apply_options(train_cfg: TrainConfig, model_cfg: DinoConfig, options):
-    """``key=value`` strings onto the two configs; an unknown key raises."""
-    hints = {TrainConfig: typing.get_type_hints(TrainConfig),
-             DinoConfig: typing.get_type_hints(DinoConfig)}
+def apply_options(train_cfg, model_cfg: DinoConfig, options):
+    """``key=value`` strings onto the training settings (a ``TrainConfig``
+    or ``PretrainConfig``) and the model's ``DinoConfig``; each key belongs
+    to one of them, an unknown key raises."""
+    train_hints = typing.get_type_hints(type(train_cfg))
+    model_hints = typing.get_type_hints(DinoConfig)
     train_kw, model_kw = {}, {}
     for opt in options or ():
         key, _, value = opt.partition("=")
-        if key in hints[TrainConfig]:
-            train_kw[key] = _parse_value(value, hints[TrainConfig][key])
-        elif key in hints[DinoConfig]:
-            kind = hints[DinoConfig][key]
+        if key in train_hints:
+            train_kw[key] = _parse_value(value, train_hints[key])
+        elif key in model_hints:
+            kind = model_hints[key]
             if typing.get_origin(kind) is typing.Union:  # Optional[int]
                 kind = typing.get_args(kind)[0]
             model_kw[key] = _parse_value(value, kind)

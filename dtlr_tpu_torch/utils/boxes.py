@@ -1,6 +1,11 @@
-"""Box coordinate helpers (counterpart of dtlr_tpu/utils/boxes.py)."""
+"""Box coordinate helpers (counterpart of dtlr_tpu/utils/boxes.py).
+
+Every function works on the last axis of 4 coordinates; the pairwise
+ones broadcast over leading batch axes."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -11,13 +16,18 @@ def box_cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
         [cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
 
 
+def box_xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], dim=-1)
+
+
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
     """Area of xyxy boxes; shape [..., 4] -> [...]."""
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
-def pairwise_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """IoU of xyxy boxes: [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+def _pairwise_iou_union(boxes1: torch.Tensor,
+                        boxes2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     area1 = box_area(boxes1)
     area2 = box_area(boxes2)
     lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
@@ -25,7 +35,45 @@ def pairwise_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor
     wh = (rb - lt).clamp(min=0.0)
     inter = wh[..., 0] * wh[..., 1]
     union = area1[..., :, None] + area2[..., None, :] - inter
-    return inter / union.clamp(min=1e-9)
+    return inter / union.clamp(min=1e-9), union
+
+
+def pairwise_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """IoU of xyxy boxes: [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+    return _pairwise_iou_union(boxes1, boxes2)[0]
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU of xyxy boxes: [..., N, 4] x [..., M, 4] -> [..., N, M]."""
+    iou, union = _pairwise_iou_union(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-9)
+
+
+def elementwise_box_iou(boxes1: torch.Tensor,
+                        boxes2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IoU and union of aligned xyxy boxes [..., 4] -> ([...], [...])."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1 + area2 - inter
+    return inter / union.clamp(min=1e-9), union
+
+
+def elementwise_generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """GIoU of aligned xyxy boxes [..., 4] -> [...]."""
+    iou, union = elementwise_box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-9)
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:

@@ -176,7 +176,7 @@ def test_recompute_grad_takes_a_view_from_the_forward():
         if fwd is None:
             out = tfa.dense_reference(*leaves, key_bias, None)
         else:
-            out = tfa.RecomputeGrad.apply(fwd, *leaves, key_bias)
+            out = tfa.RecomputeGrad.apply(fwd, *leaves, key_bias, None)
             assert not out.is_contiguous()
         (out * w).sum().backward()
         grads.append([t.grad for t in leaves])

@@ -128,7 +128,7 @@ def test_recompute_grad_matches_jax_grad(prior):
         fields = [t.clone().requires_grad_(t.is_floating_point()) for t in tp]
         leaves += [fields[i] for i in (0, 1, 2, 3, 7)]  # cx, cy, ihw, ihh, gamma
     launches = dict(tfa.flash_mha.launches)
-    out = tfa.RecomputeGrad.apply(tfa.dense_reference, *leaves[:3], kb, *fields)
+    out = tfa.RecomputeGrad.apply(tfa.dense_reference, *leaves[:3], kb, None, *fields)
     (out * torch.from_numpy(w)).sum().backward()
     assert tfa.flash_mha.launches == launches
     assert kb.grad is None

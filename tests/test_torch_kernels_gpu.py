@@ -8,7 +8,12 @@ Both instantiations, fp32 and bf16 inputs, ragged Q and S (the last key
 tile and the last query tile partly filled; Q=900 leaves 4 rows in the
 last 64-query tile), 20% of keys padded; S=3570, whose levels start at
 keys 2688, 3360 and 3528, so two 64-key tiles mix levels; the decoder's
-strided (B, S, M, D) projection views; a fully masked row. An
+strided (B, S, M, D) projection views; a fully masked row. The
+self-attention's CDN group mask (``query_group``) on the no-prior
+instantiations: the flagship step's layout (a 128-query denoising prefix
+before 900 matching queries, Q = S = 1028, so the matching rows' first
+two 64-key tiles are blocked whole), several denoising groups, ragged
+shapes, strided views, and the gradient through ``RecomputeGrad``. An
 out-of-range gather index fails the kernel's device-side assert, which
 is checked in a child process.
 Tolerances: 1e-4 in fp32 (summation order) and 2e-2 with bf16 inputs,
@@ -26,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from dtlr_tpu_torch.models.cdn import CdnMeta, cdn_num_groups, cdn_query_groups
 from dtlr_tpu_torch.ops import flash_attn as tfa
 from dtlr_tpu_torch.ops import gather
 
@@ -166,6 +172,101 @@ def test_kernel_gradients_match_plain(cuda, prior, dtype, tol):
     for g, r in zip(got, want):
         scale = max(1.0, float(r.abs().max()))
         assert float((g.float() - r.float()).abs().max()) <= tol * scale
+
+
+def self_inputs(Q, dtype, dev, seed=0, strided=False):
+    """q, k, v heads (B, M, Q, D) of a self-attention, contiguous or as
+    the strided views of (B, Q, M*D) projections."""
+    rng = np.random.default_rng(seed)
+    heads = []
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((B, Q, M * D)).astype(np.float32)).to(dev)
+        x = x.to(dtype).view(B, Q, M, D).transpose(1, 2)
+        heads.append(x if strided else x.contiguous())
+    return heads
+
+
+def cdn_groups(dn_number, n_max, num_queries, dev):
+    """The (pad + num_queries,) query groups of a CDN layout."""
+    G = cdn_num_groups(dn_number, n_max)
+    return cdn_query_groups(num_queries, CdnMeta(G * 2 * n_max, G, n_max), dev)
+
+
+#: (dn_number, n_max, matching queries): the flagship step's layout (one
+#: group of 2 x 64, Q = 1028), twelve groups of 2 x 8 (Q = 1092), and a
+#: small ragged one (two groups of 2 x 5, Q = 90)
+CDN_LAYOUTS = [(100, 64, 900), (100, 8, 900), (12, 5, 70)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout", CDN_LAYOUTS, ids=["flagship", "twelve_groups", "small"])
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+def test_masked_kernel_matches_plain(cuda, layout, dtype, tol, strided):
+    """The group mask against the plain version's (Q, Q) mask, and the
+    matching rows against attention over the matching keys alone (which
+    the mask must amount to)."""
+    group = cdn_groups(*layout, cuda)
+    Q = group.numel()
+    qh, kh, vh = self_inputs(Q, dtype, cuda, seed=6, strided=strided)
+    key_bias = torch.zeros(B, Q, device=cuda)
+    before = dict(tfa.flash_mha.launches)
+    got = tfa.flash_mha(qh, kh, vh, key_bias, None, group)
+    torch.cuda.synchronize()
+    assert tfa.flash_mha.launches["mha_masked"] == before["mha_masked"] + 1
+    assert tfa.flash_mha.launches["mha"] == before["mha"]
+    assert torch.isfinite(got).all()
+    want = tfa.dense_reference(qh, kh, vh, key_bias, None, group)
+    assert float((got - want).abs().max()) <= tol
+    pad = int((group >= 0).sum())
+    alone = tfa.dense_reference(qh[:, :, pad:], kh[:, :, pad:], vh[:, :, pad:],
+                                key_bias[:, pad:], None)
+    assert float((got[:, :, pad:] - alone).abs().max()) <= tol
+    # and the mask matters: without it the outputs move by 0.25 to 0.95
+    # (the plain version on these inputs)
+    plain = tfa.flash_mha(qh, kh, vh, key_bias, None)
+    assert float((plain - want).abs().max()) > 5 * tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)],
+                         ids=["fp32", "bf16"])
+def test_masked_kernel_gradients_match_plain(cuda, dtype, tol):
+    """Through RecomputeGrad, which recomputes under the same mask."""
+    group = cdn_groups(12, 5, 70, cuda)
+    Q = group.numel()
+    qh, kh, vh = self_inputs(Q, dtype, cuda, seed=9)
+    key_bias = torch.zeros(B, Q, device=cuda)
+    w = torch.randn(qh.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (qh, kh, vh)]
+        (fn(*leaves, key_bias, None, group) * w).sum().backward()
+        return [t.grad for t in leaves]
+
+    before = tfa.flash_mha.launches["mha_masked"]
+    backwards = tfa.RecomputeGrad.backwards
+    got = grads(tfa.flash_mha)
+    torch.cuda.synchronize()
+    assert tfa.flash_mha.launches["mha_masked"] == before + 1
+    assert tfa.RecomputeGrad.backwards == backwards + 1
+    for g, r in zip(got, grads(tfa.dense_reference)):
+        scale = max(1.0, float(r.abs().max()))
+        assert float((g.float() - r.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+def test_masked_kernel_rejects_what_it_does_not_take(cuda):
+    qh, kh, vh, key_bias, prior = inputs(145, 70, torch.float32, cuda)
+    group = torch.full((70,), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="Q = S"):
+        tfa.flash_mha(qh, kh, vh, key_bias, None, group)
+    square, bias = kh[:, :, :70], key_bias[:, :70].contiguous()
+    with pytest.raises(ValueError, match="without the box prior"):
+        tfa.flash_mha(qh, square, square, bias, prior, group)
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_mha(qh, square, square, bias, None, group.long())
 
 
 @pytest.mark.gpu
