@@ -5,6 +5,13 @@
 
 Phases, each printing one JSON line with its seconds:
   device   the card, its power limit, TF32 off for matmuls and convolutions
+  data     the recipes' batchers (dtlr_tpu_torch.data.batching): the first 4
+           training batches of the finetune recipe over the fixture lines
+           and of the pretraining recipe (reuse pool, character boxes) over
+           the detection fixture, against the JAX package's committed ones
+           (dtlr_tpu_torch/assets/smoke_data.npz: sha256 of the uint8
+           images, labels, validity, valid sizes, boxes), numpy's version
+           on both sides, ms per batch on the host
   build    one nvcc per CUDA source (dtlr_tpu_torch/csrc/box_attn.cu and
            row_gather.cu), all started together, for sm_90a (ptxas report:
            registers, shared memory, spills), and the count of tensor-core
@@ -32,6 +39,15 @@ Phases, each printing one JSON line with its seconds:
            against the JAX package's float32 reading, and in the recipe's
            bfloat16, held against its bf16 reading (smoke_lines_bf16.npz);
            launch counts per forward and lines/s for each
+  sweep    python -m dtlr_tpu_torch.eval.evaluate --sweep over the fixture
+           lines with the flagship checkpoint, in float32 and bfloat16:
+           the 10 x 9 TH x NMS grid decoded from one forward per batch
+           (6 launches of each attention instantiation per batch, not 90
+           times that), every point's CER against the JAX package's
+           committed grid (dtlr_tpu_torch/assets/smoke_sweep.json), the
+           best point, the files written; forward ms per batch, NMS ms
+           per NMS value and batch, decode ms per point, lines/s; each
+           dtype twice (the first call cold, then the same again)
   train    CTC finetuning with the recipe's trainer (dtlr_tpu_torch.train.engine,
            full-model optimizer) from the flagship checkpoint on the eight
            lines: the first step in float32 and in bfloat16 against the JAX
@@ -43,7 +59,10 @@ Phases, each printing one JSON line with its seconds:
            skipped, the weights move), ms per step, lines/s, peak memory,
            the step split into forward, backward and update, one profiled
            step's top operators; and the trained weights through an npz
-           into a fresh model that reads the lines to the same strings
+           into a fresh model that reads the lines to the same strings;
+           then two steps of the entry point python -m
+           dtlr_tpu_torch.train.finetune through the recipe's batcher
+           (finite losses, each step's batch the data phase's)
   detect   the detection training step with contrastive denoising, the
            matcher and the DINO loss (dtlr_tpu_torch.train.engine in
            detection mode) from the pretraining trunk
@@ -59,7 +78,9 @@ Phases, each printing one JSON line with its seconds:
            ms per step, lines/s, peak memory, the split into forward,
            matching, loss, backward and update, the matcher's rounds and
            host reads, one profiled step), and two steps of the entry
-           point python -m dtlr_tpu_torch.train.pretrain
+           point python -m dtlr_tpu_torch.train.pretrain through the
+           recipe's batcher with the reuse pool (each step's batch the
+           data phase's)
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel, the card's name
 and power limit from nvidia-smi, and as the last line
@@ -178,6 +199,16 @@ DETECT_TOL_FP32 = {"loss": 3e-3, "grad_norm": 1e-2, "leaf": 3e-2, "term": 1e-2}
 # the gradient norms as the batch's
 DETECT_LINE_TOL_FP32 = {"loss": 1e-3, "loss_ce_dn": 1e-3, "grad_norm": 1e-2, "leaf": 3e-2}
 ANCHOR_TOL = 1e-6
+# the data phase: JAX's first batches of both recipes' batchers (written on
+# the CPU by tests/test_torch_smoke_data.py), their seed (the entry points'
+# default --seed) and count
+DATA_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_data.npz")
+DATA_SEED, DATA_BATCHES = 42, 4
+DATA_FIELDS = ("labels", "valid", "valid_hw", "boxes")
+# the sweep phase: JAX's evaluate --sweep on the fixture lines (the same
+# test file), and each point's CER tolerance per dtype (the read phase's)
+SWEEP_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_sweep.json")
+SWEEP_TOL = {"float32": 0.01, "bfloat16": 0.02}
 # agreement with the JAX package's float32 CPU reading of the lines: per
 # query on the lines whose two-stage selection is JAX's, slot for slot; a
 # selection that differs must come from a near tie of proposal scores
@@ -832,9 +863,11 @@ def step_split(trainer, batch):
             "update_ms": ev[2].elapsed_time(ev[3])}
 
 
-def phase_train(card):
+def phase_train(card, data_hashes):
     """CTC finetuning on the card (see the module docstring)."""
     import tempfile
+
+    from dtlr_tpu_torch.train import finetune
 
     from dtlr_tpu_torch.eval.evaluate import load_lines, load_model, read_lines
     from dtlr_tpu_torch.ops.flash_attn import RecomputeGrad, flash_mha, reset_launches
@@ -915,8 +948,29 @@ def phase_train(card):
                         and launches == {"mha_box": 6 * n_steps, "mha": 6 * n_steps,
                                          "mha_masked": 0}
                         and backwards == 12 * n_steps and record["round_trip"]["same"])
-        emit(record)
         del trainer, model
+        torch.cuda.empty_cache()
+
+        # the entry point a user runs: two steps through the recipe's
+        # batcher, the save and the evaluation
+        t1 = time.perf_counter()
+        seen, unspy = spy_step_batches()
+        try:
+            cli = finetune.main(["--lines", LINES, "--pretrain_dir", PARAMS, "--full_model",
+                                 "--output_dir", os.path.join(workdir, "cli"), "--epochs", "1",
+                                 "--options", "max_iterations=2"])
+        finally:
+            unspy()
+        torch.cuda.synchronize()
+        record["entry_point"] = {
+            "train": cli["train"], "eval": cli["eval"], "batch_sha256": seen,
+            "batches_are_the_data_phase's": seen == data_hashes["finetune"][:len(seen)],
+            "seconds": time.perf_counter() - t1}
+        record["ok"] = (record["ok"] and len(seen) == 2
+                        and record["entry_point"]["batches_are_the_data_phase's"]
+                        and math.isfinite(cli["train"]["loss"]) and cli["train"]["skipped"] == 0
+                        and math.isfinite(cli["eval"]["cer"]))
+        emit(record)
         torch.cuda.empty_cache()
     failed = [(r["compute_dtype"], r.get("step", "timed")) for r in records if not r["ok"]]
     if failed:
@@ -1190,7 +1244,7 @@ def detect_split(trainer, batch):
     return {f"{p}_ms": events[i].elapsed_time(events[i + 1]) for i, p in enumerate(phases)}
 
 
-def phase_detect(card):
+def phase_detect(card, data_hashes):
     """The detection training step on the card (see the module docstring)."""
     import tempfile
 
@@ -1271,14 +1325,21 @@ def phase_detect(card):
 
         # the entry point a user runs: two steps, a save and the detection eval
         reset_launches()
-        cli = pretrain.main(["--params", DETECT_PARAMS, "--lines", DETECT_LINES,
-                             "--output_dir", os.path.join(workdir, "cli"), "--steps", "2"])
+        seen, unspy = spy_step_batches()
+        try:
+            cli = pretrain.main(["--params", DETECT_PARAMS, "--lines", DETECT_LINES,
+                                 "--output_dir", os.path.join(workdir, "cli"), "--steps", "2"])
+        finally:
+            unspy()
         torch.cuda.synchronize()
         record["entry_point"] = {
             "train": cli["train"], "eval": cli["eval"], "launches": dict(flash_mha.launches),
-            "weights_saved": os.path.exists(cli["params"])}
+            "weights_saved": os.path.exists(cli["params"]), "batch_sha256": seen,
+            "batches_are_the_data_phase's": seen == data_hashes["pretrain"][:len(seen)]}
         record["ok"] = (record["ok"] and record["entry_point"]["weights_saved"]
                         and math.isfinite(cli["eval"]["loss"])
+                        and math.isfinite(cli["train"]["loss"]) and len(seen) == 2
+                        and record["entry_point"]["batches_are_the_data_phase's"]
                         and flash_mha.launches["mha_masked"] == 2 * n_dec)
         record["seconds"] = time.perf_counter() - t0
         emit(record)
@@ -1287,6 +1348,141 @@ def phase_detect(card):
     if failed:
         raise AssertionError(f"detect phase checks failed: {failed} (steps: 0 is the first "
                              "against JAX's, 'timed' the 12 recipe steps and the entry point)")
+    return records, launches
+
+
+def image_sha256(images) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(images, np.uint8).tobytes()).hexdigest()
+
+
+def recipe_batcher(recipe):
+    """The batcher an entry point builds for ``recipe`` ("finetune" or
+    "pretrain") over its fixture lines, with the entry points' seed."""
+    from dtlr_tpu_torch.data.batching import make_batcher
+    from dtlr_tpu_torch.data.loaders import NpzLines, dataset_iter
+    from dtlr_tpu_torch.train.config import RECIPE, RECIPE_DETECTION
+
+    cfg, path = (RECIPE, LINES) if recipe == "finetune" else (RECIPE_DETECTION, DETECT_LINES)
+    ds = NpzLines(path)
+    return make_batcher(cfg, dataset_iter(ds), True, DATA_SEED, ds.charset.index(" "),
+                        reuse=cfg.reuse, erasing=cfg.truly_random_erasing)
+
+
+def phase_data():
+    """The recipes' first batches made on this host against JAX's
+    committed ones (see the module docstring); the image hashes per recipe
+    for the entry points' checks."""
+    t0 = time.perf_counter()
+    ref = np.load(DATA_REF)
+    record = {"phase": "data", "numpy": np.__version__,
+              "numpy_of_reference": str(ref["numpy_version"][0]), "recipes": {}}
+    hashes = {}
+    for recipe in ("finetune", "pretrain"):
+        batcher = recipe_batcher(recipe)
+        batches, ms = [], []
+        for _ in range(DATA_BATCHES):  # the worker's own call, in this thread
+            t1 = time.perf_counter()
+            batches.append(batcher._make_batch())
+            ms.append((time.perf_counter() - t1) * 1e3)
+        got = [image_sha256(b.images) for b in batches]
+        want = [str(h) for h in ref[f"{recipe}_images_sha256"]]
+        fields = {f: bool(np.array_equal(np.stack([getattr(b, f) for b in batches]),
+                                         ref[f"{recipe}_{f}"])) for f in DATA_FIELDS}
+        record["recipes"][recipe] = {
+            "images_equal": [g == w for g, w in zip(got, want)], "fields_equal": fields,
+            "shapes": [list(b.images.shape) for b in batches], "dtype": str(batches[0].images.dtype),
+            "ms_per_batch": ms, "lines_per_s": len(batches[0].texts) / (np.median(ms) / 1e3)}
+        hashes[recipe] = got
+    record["ok"] = all(all(r["images_equal"]) and all(r["fields_equal"].values())
+                       for r in record["recipes"].values())
+    record["seconds"] = time.perf_counter() - t0
+    emit(record)
+    if not record["ok"]:
+        raise AssertionError("the port's batches differ from the JAX package's committed ones "
+                             f"(numpy {np.__version__} here, {record['numpy_of_reference']} there)")
+    return hashes
+
+
+def spy_step_batches():
+    """Wrap ``Trainer.step`` to record the sha256 of each batch's images;
+    returns the list and the function that unwraps it."""
+    from dtlr_tpu_torch.train import engine
+
+    seen, orig = [], engine.Trainer.step
+
+    def step(self, batch, mark=None):
+        seen.append(image_sha256(engine.batch_to_arrays(batch)["images"]))
+        return orig(self, batch, mark)
+
+    engine.Trainer.step = step
+    return seen, lambda: setattr(engine.Trainer, "step", orig)
+
+
+def sweep_timings(res):
+    """The forward's ms per batch, the NMS masks' ms per NMS value and
+    batch, the decode's ms per grid point, and lines/s of one sweep."""
+    t = res["timings"]
+    stat = lambda v: {"median": float(np.median(v)), "max": float(np.max(v)), "count": len(v)}
+    return {"forward_ms_per_batch": t["forward_ms"], "nms_ms_per_value_and_batch": stat(t["nms_ms"]),
+            "decode_ms_per_point": stat(t["decode_ms"]), "sweep_seconds": res["seconds"],
+            "lines_per_s": res["lines_per_s"]}
+
+
+def phase_sweep(card):
+    """The evaluate entry point's sweep in float32 and bfloat16 against
+    JAX's committed grid (see the module docstring), each run twice: the
+    first call builds the model and meets the card cold, the second is the
+    same command again."""
+    import tempfile
+
+    from dtlr_tpu_torch.eval import evaluate
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+
+    with open(SWEEP_REF) as fh:
+        ref = json.load(fh)
+    records, launches = [], {}
+    for dt in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        want = {(r["TH"], r["NMS"]): r for r in ref[dt]["records"]}
+        record = {"phase": "sweep", "compute_dtype": dt, "jax_points": len(want),
+                  "jax_skipped": len(ref[dt]["skipped"]), "jax_empty_th": ref[dt]["empty_th"],
+                  "jax_best": ref[dt]["best"], "tol": SWEEP_TOL[dt], "runs": [], "card": card}
+        ok = True
+        for _ in range(2):
+            with tempfile.TemporaryDirectory() as out_dir:
+                reset_launches()
+                res = evaluate.main(["--params", PARAMS, "--lines", LINES, "--sweep",
+                                     "--compute_dtype", dt, "--out_dir", out_dir])
+                torch.cuda.synchronize()
+                launches[dt] = dict(flash_mha.launches)
+                files = sorted(os.listdir(out_dir))
+            got = {(r["TH"], r["NMS"]): r for r in res["records"]}
+            common = sorted(set(want) & set(got))
+            err = max(abs(got[k]["CER"] - want[k]["CER"]) for k in common)
+            best_err = abs(res["best"]["record"]["CER"] - ref[dt]["best"]["CER"])
+            n_batches = len(res["timings"]["forward_ms"])
+            run = {"lines": res["lines"], "batches": n_batches, "points": len(got),
+                   "skipped": len(res["skipped"]), "empty_th": res["empty_th"],
+                   "max_cer_err": err, "best": res["best"]["record"], "best_cer_err": best_err,
+                   "files": files, "launches": launches[dt], **sweep_timings(res)}
+            n_dec = FLAGSHIP.dec_layers
+            ok = (ok and len(common) == len(want) == len(got) and err <= SWEEP_TOL[dt]
+                  and best_err <= SWEEP_TOL[dt]
+                  and {"preds.txt", "gts.txt", "char_cer_impact.txt", "stats.json"} <= set(files)
+                  and launches[dt] == {"mha_box": n_dec * n_batches, "mha": n_dec * n_batches,
+                                       "mha_masked": 0})
+            record["runs"].append(run)
+        record["ok"] = ok
+        record["seconds"] = time.perf_counter() - t0
+        records.append(record)
+        emit(record)
+        torch.cuda.empty_cache()
+    failed = [r["compute_dtype"] for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"sweep phase checks failed: {failed}")
     return records, launches
 
 
@@ -1322,6 +1518,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "tf32_matmul": False, "tf32_cudnn": False,
           "seconds": time.perf_counter() - t0})
+
+    data_hashes = phase_data()
 
     t0 = time.perf_counter()
     built = _build.build([flash_attn.SOURCE, gather.SOURCE])
@@ -1362,9 +1560,11 @@ def main() -> int:
         record["seconds"] = time.perf_counter() - t0
         emit(record)
 
-    train_records, train_launches = phase_train(card)
+    sweep_records, sweep_launches = phase_sweep(card)
 
-    detect_records, detect_launches = phase_detect(card)
+    train_records, train_launches = phase_train(card, data_hashes)
+
+    detect_records, detect_launches = phase_detect(card, data_hashes)
 
     t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
@@ -1373,10 +1573,11 @@ def main() -> int:
 
     # each kernel at its main path's shape, dtype and layout: the attention
     # in the recipe's bfloat16 on the decoder's strided views, the gather
-    # in the probe. This slice's path is the detection step (the cross-
-    # attention at 1028 queries, the masked self-attention); the unmasked
-    # self-attention runs on the read and CTC paths (its launches: the 12
-    # CTC steps), the gather in the probe. Every path's counts beside them.
+    # in the probe. ``launches``: the cross-attention and the masked
+    # self-attention of the detection step (1028 queries), the unmasked
+    # self-attention of the 12 CTC steps, the gather in the probe. Every
+    # path's counts beside them, the evaluate sweep's (one forward for 90
+    # points) among them.
     main_shape = {"mha_box": (2720, Q_DETECT, "bfloat16", "strided"),
                   "mha": (900, Q, "bfloat16", "strided"),
                   "mha_masked": (Q_DETECT, Q_DETECT, "bfloat16", "strided"),
@@ -1384,6 +1585,8 @@ def main() -> int:
     main_launches = {"mha_box": detect_launches["mha_box"], "mha": train_launches["mha"],
                      "mha_masked": detect_launches["mha_masked"], **probe_launches}
     paths = {"read_bf16_forward": launches["bfloat16"], "read_fp32_forward": launches["float32"],
+             "sweep_bf16_90_points": sweep_launches["bfloat16"],
+             "sweep_fp32_90_points": sweep_launches["float32"],
              "ctc_train_bf16_12_steps": train_launches,
              "detect_bf16_12_steps": detect_launches}
     by_path = {name: {path: counts[name] for path, counts in paths.items()}

@@ -2,10 +2,11 @@
 
 Its layout mirrors ``dtlr_tpu/``: ``models/`` (the DINO detector),
 ``ops/`` (pixels, the box-prior attention kernel and its plain version,
-the CTC loss and blank synthesis, NMS), ``eval/`` (decode, metrics, the
-evaluate entry point), ``train/`` (CTC finetuning: optimizer, train
-step, checkpoints, the trainer and the finetune entry point),
-``data/charset.py`` and ``utils/boxes.py``. The package
+the CTC loss and blank synthesis, NMS, the matcher), ``eval/`` (decode,
+metrics, the evaluate entry point and its sweep), ``train/`` (optimizer,
+train steps, checkpoints, the trainer and the finetune and pretrain
+entry points), ``data/`` (charsets, transforms, the bucketed batcher,
+npz line datasets) and ``utils/boxes.py``. The package
 imports torch and numpy only; its CUDA sources live in ``csrc/`` and
 are compiled with ``nvcc`` at first use (``ops/flash_attn.py``).
 """

@@ -46,5 +46,9 @@ def text_to_labels(text: Sequence[str], charset: Sequence[str]) -> List[int]:
     return [index[c] for c in text if c in index]
 
 
-def labels_to_text(labels: Sequence[int], charset: Sequence[str]) -> str:
-    return "".join(charset[i] for i in labels if 0 <= i < len(charset))
+def labels_to_text(labels: Sequence[int], charset: Sequence[str],
+                   token_based: bool = False) -> str:
+    """The labels' characters, or space-separated tokens with
+    ``token_based`` (the ciphers' multi-character symbols)."""
+    return (" " if token_based else "").join(charset[i] for i in labels
+                                             if 0 <= i < len(charset))

@@ -1,0 +1,292 @@
+"""Image and box transforms on the host (counterpart of
+dtlr_tpu/data/transforms.py).
+
+Images are (H, W, 3) float32 in [0, 1] and boxes (N, 4) pixel xyxy until
+``normalize_boxes`` makes them normalized cxcywh. The random transforms
+draw from ``rng`` (a ``np.random.Generator``) in the JAX package's order,
+so a seed gives the same images there and here.
+
+``_interp_resize`` is the one place the JAX package leaves numpy: it
+upscales with its C++ helper (dtlr_tpu/runtime/native.cpp,
+``resize_bilinear_f32``) and downscales with PIL's bilinear filter. Here
+both are torch ops on CPU tensors that compute the same bytes:
+- ``_upscale``: native.cpp's half-pixel bilinear, whose build (``-O3
+  -march=native``) contracts each ``a + (b - a) * w`` into one fused
+  multiply-add; ``_fma32`` rounds as that instruction does.
+- ``_pil_bilinear``: PIL's two-pass resampler for 8-bit images
+  (libImaging/Resample.c): triangle-filter coefficients scaled by the
+  larger of 1 and the reduction factor, as 22-bit fixed point, a
+  horizontal then a vertical pass, each rounded and clipped to uint8.
+
+``rotate_with_boxes`` and ``gaussian_blur`` need PIL and are off the
+recipe (``rotate_p = 0``; nothing calls ``gaussian_blur``): not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+# PIL's fixed-point coefficients: 32 bits less 8 for the pixel, 2 spare
+_PIL_PRECISION = 22
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for float32 tensors, rounded once. The product of two
+    float32 is exact in float64; the float64 sum may round, which changes
+    the float32 result only when it lands exactly between two float32
+    values: then the sum's rounding error (two-sum) says which way."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    t = s - p
+    err = (p - (s - t)) + (cd - t)
+    r = s.float()
+    back = r.double()
+    inf = torch.tensor(math.inf, dtype=torch.float32)
+    other = torch.nextafter(r, torch.where(s >= back, inf, -inf))
+    tie = (s - back).abs() == (other.double() - s).abs()
+    return torch.where(tie & (err != 0) & ((err > 0) == (other > r)), other, r)
+
+
+def _upscale_axis(src: int, dst: int):
+    """native.cpp's source rows (or columns) and weights along one axis:
+    position max(0, (i + 0.5) * (src / dst) - 0.5), the multiply-add
+    rounded once (exact rational arithmetic, then one rounding)."""
+    f = Fraction(src / dst)
+    pos = np.asarray([float(Fraction(2 * i + 1, 2) * f - Fraction(1, 2)) for i in range(dst)],
+                     np.float64)
+    pos = np.maximum(pos, 0.0)
+    i0 = pos.astype(np.int64)
+    i1 = np.minimum(i0 + 1, src - 1)
+    return (torch.from_numpy(i0), torch.from_numpy(i1),
+            torch.from_numpy((pos - i0).astype(np.float32)))
+
+
+def _upscale(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    x = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+    y0, y1, wy = _upscale_axis(x.shape[0], out_h)
+    x0, x1, wx = _upscale_axis(x.shape[1], out_w)
+    r0, r1 = x[y0], x[y1]
+    p00, p01, p10, p11 = r0[:, x0], r0[:, x1], r1[:, x0], r1[:, x1]
+    wx = wx.view(1, -1, 1).expand_as(p00)
+    wy = wy.view(-1, 1, 1).expand_as(p00)
+    top = _fma32(p01 - p00, wx, p00)
+    bot = _fma32(p11 - p10, wx, p10)
+    return _fma32(bot - top, wy, top).numpy()
+
+
+def _pil_coefficients(in_size: int, out_size: int):
+    """PIL's bilinear taps for one axis (Resample.c precompute_coeffs and
+    normalize_coeffs_8bpc): source index and fixed-point weight per
+    output pixel and tap, unused taps weighted 0."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale
+    ss = 1.0 / filterscale
+    taps = int(math.ceil(support)) * 2 + 1
+    index = np.zeros((out_size, taps), np.int64)
+    weight = np.zeros((out_size, taps), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), in_size) - xmin
+        w = []
+        for x in range(n):
+            d = abs((x + xmin - center + 0.5) * ss)
+            w.append(1.0 - d if d < 1.0 else 0.0)
+        total = 0.0
+        for v in w:
+            total += v
+        for x, v in enumerate(w):
+            if total != 0.0:
+                v /= total
+            weight[xx, x] = int(0.5 + v * (1 << _PIL_PRECISION))
+            index[xx, x] = xmin + x
+    return torch.from_numpy(index), torch.from_numpy(weight)
+
+
+def _pil_pass(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
+    """One pass of PIL's 8-bit resampler over int64 pixels (H, W, 3)."""
+    index, weight = _pil_coefficients(x.shape[axis], out_size)
+    if axis == 1:
+        acc = (x[:, index] * weight[None, :, :, None]).sum(2)
+    else:
+        acc = (x[index] * weight[:, :, None, None]).sum(1)
+    return ((acc + (1 << (_PIL_PRECISION - 1))) >> _PIL_PRECISION).clamp(0, 255)
+
+
+def _pil_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """PIL's ``Image.fromarray(uint8).resize((out_w, out_h), BILINEAR)``
+    of the image truncated to uint8, back to float32 in [0, 1]."""
+    x = torch.from_numpy((np.clip(img, 0, 1) * 255).astype(np.uint8)).long()
+    if out_w != x.shape[1]:
+        x = _pil_pass(x, 1, out_w)
+    if out_h != x.shape[0]:
+        x = _pil_pass(x, 0, out_h)
+    return x.to(torch.uint8).numpy().astype(np.float32) / 255.0
+
+
+def _interp_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Bilinear resize: native.cpp's when neither side shrinks, PIL's
+    (antialiased, through uint8) otherwise, as the JAX package does."""
+    h, w = img.shape[:2]
+    if out_h >= h and out_w >= w:
+        return _upscale(img, out_h, out_w)
+    return _pil_bilinear(img, out_h, out_w)
+
+
+def normalize_boxes(boxes, h: int, w: int):
+    """Pixel xyxy -> normalized cxcywh."""
+    if boxes is None or len(boxes) == 0:
+        return boxes
+    b = boxes.astype(np.float32)
+    cx = (b[:, 0] + b[:, 2]) / 2 / w
+    cy = (b[:, 1] + b[:, 3]) / 2 / h
+    bw = (b[:, 2] - b[:, 0]) / w
+    bh = (b[:, 3] - b[:, 1]) / h
+    return np.stack([cx, cy, bw, bh], -1)
+
+
+def resize_min_side(img, boxes, size: int, max_size: int | None = 1333):
+    """Scale so the short side is ``size``, capped so the long side is at
+    most ``max_size`` (reference transforms.py:78-107)."""
+    h, w = img.shape[:2]
+    min_orig, max_orig = min(h, w), max(h, w)
+    if max_size is not None and size / min_orig * max_orig > max_size:
+        size = int(round(max_size * min_orig / max_orig))
+    if min_orig == h:
+        out_h, out_w = size, int(round(size * w / h))
+    else:
+        out_w, out_h = size, int(round(size * h / w))
+    out = _interp_resize(img, out_h, out_w)
+    scale = np.asarray([out_w / w, out_h / h, out_w / w, out_h / h], np.float32)
+    return out, (boxes * scale if boxes is not None and len(boxes) else boxes)
+
+
+def random_erasing(rng: np.random.Generator, img, p=0.5, scale=(0.02, 0.33),
+                   ratio=(0.3, 3.3), value="random"):
+    """torchvision-style RandomErasing: up to 10 tries at a box inside the
+    image (reference transforms.py:304-311)."""
+    if rng.random() > p:
+        return img
+    h, w = img.shape[:2]
+    area = h * w
+    for _ in range(10):
+        target = rng.uniform(*scale) * area
+        r = np.exp(rng.uniform(np.log(ratio[0]), np.log(ratio[1])))
+        eh = int(round(np.sqrt(target * r)))
+        ew = int(round(np.sqrt(target / r)))
+        if eh < h and ew < w and eh > 0 and ew > 0:
+            y = rng.integers(0, h - eh)
+            x = rng.integers(0, w - ew)
+            img = img.copy()
+            if value == "random":
+                img[y : y + eh, x : x + ew] = rng.random((eh, ew, 3), dtype=np.float32)
+            else:
+                img[y : y + eh, x : x + ew] = value
+            return img
+    return img
+
+
+def random_erasing_full_vertical(rng, img, p=0.9, n_range=(1, 12), width_frac=(0.005, 0.04)):
+    """Full-height column erases (reference RandomErasingFullVertical,
+    transforms.py:252-301)."""
+    if rng.random() > p:
+        return img
+    h, w = img.shape[:2]
+    img = img.copy()
+    for _ in range(rng.integers(n_range[0], n_range[1] + 1)):
+        ew = max(1, int(rng.uniform(*width_frac) * w))
+        x = rng.integers(0, max(1, w - ew))
+        img[:, x : x + ew] = rng.random((h, ew, 3), dtype=np.float32)
+    return img
+
+
+def instance_aware_erasing(rng, img, char_boxes, labels, space_label: int, p=0.5,
+                           word_p=0.35):
+    """Erase whole words found from the character boxes, split at spaces
+    (reference InstanceAwareRandomErasing, transforms.py:324-531)."""
+    if rng.random() > p or char_boxes is None or len(char_boxes) == 0:
+        return img
+    img = img.copy()
+    h, w = img.shape[:2]
+    words, cur = [], []
+    for box, lab in zip(char_boxes, labels):
+        if lab == space_label:
+            if cur:
+                words.append(cur)
+            cur = []
+        else:
+            cur.append(box)
+    if cur:
+        words.append(cur)
+    for word in words:
+        if rng.random() > word_p or not word:
+            continue
+        bs = np.asarray(word)
+        x0, y0 = bs[:, 0].min(), bs[:, 1].min()
+        x1, y1 = bs[:, 2].max(), bs[:, 3].max()
+        x0, y0 = max(0, int(x0)), max(0, int(y0))
+        x1, y1 = min(w, int(np.ceil(x1))), min(h, int(np.ceil(y1)))
+        if x1 > x0 and y1 > y0:
+            img[y0:y1, x0:x1] = rng.random((y1 - y0, x1 - x0, 3), dtype=np.float32)
+    return img
+
+
+def crop_with_boxes(img, boxes, labels, region):
+    """Crop ``region`` (i, j, h, w); clamp the boxes to it and drop those
+    left without area (reference transforms.py:16-56)."""
+    i, j, ch, cw = region
+    out = img[i : i + ch, j : j + cw]
+    if boxes is None or len(boxes) == 0:
+        return out, boxes, labels
+    b = np.asarray(boxes, np.float32) - np.asarray([j, i, j, i], np.float32)
+    b = b.reshape(-1, 2, 2)
+    b = np.minimum(b, np.asarray([cw, ch], np.float32))
+    b = np.clip(b, 0, None)
+    keep = np.all(b[:, 1] > b[:, 0], axis=1)
+    b = b.reshape(-1, 4)
+    return out, b[keep], (labels[keep] if labels is not None else None)
+
+
+def random_size_crop(rng, img, boxes, labels, min_size: int, max_size: int):
+    """A region of random width and height in [min_size, min(side,
+    max_size)] at a uniform place (reference transforms.py:175-185)."""
+    h, w = img.shape[:2]
+    cw = int(rng.integers(min_size, min(w, max_size) + 1)) if min(w, max_size) >= min_size else w
+    ch = int(rng.integers(min_size, min(h, max_size) + 1)) if min(h, max_size) >= min_size else h
+    cw, ch = min(cw, w), min(ch, h)
+    i = int(rng.integers(0, h - ch + 1))
+    j = int(rng.integers(0, w - cw + 1))
+    return crop_with_boxes(img, boxes, labels, (i, j, ch, cw))
+
+
+def scales2_chain(rng, img, boxes, labels, scales2_resize, scales2_crop, scales, max_size):
+    """The alternate augmentation branch: resize, random crop, resize
+    (reference datasets/transforms.py RandomResize -> RandomSizeCrop ->
+    RandomResize). Returns (img, boxes, labels)."""
+    size = int(scales2_resize[rng.integers(0, len(scales2_resize))])
+    img, boxes = resize_min_side(img, boxes, size, max_size=None)
+    img, boxes, labels = random_size_crop(rng, img, boxes, labels, scales2_crop[0],
+                                          scales2_crop[1])
+    size = int(scales[rng.integers(0, len(scales))])
+    img, boxes = resize_min_side(img, boxes, size, max_size=max_size)
+    return img, boxes, labels
+
+
+def adjust_brightness_contrast(rng, img, brightness=(0.8, 1.2), contrast=(0.8, 1.2)):
+    img = img * rng.uniform(*brightness)
+    mean = img.mean()
+    img = (img - mean) * rng.uniform(*contrast) + mean
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def lighting_noise(rng, img):
+    """Random channel permutation (reference sltransform.py:38-57)."""
+    return img[:, :, rng.permutation(3)]

@@ -4,12 +4,14 @@ dtlr_tpu/eval/decode.py).
 - greedy: x-sort + blank synthesis (eps = 0.03/K) -> argmax per query,
   drop blanks, charset[argmax - 1] left to right
 - NMS: top-``num_select`` over the flattened query x class scores,
-  class-agnostic NMS, score > TH, sort by box x-centre
+  class-agnostic NMS, score > TH, sort by box x-centre. The NMS keep
+  mask does not depend on TH, so ``nms_candidates`` computes it once
+  and ``threshold_labels`` applies any TH to it (the evaluate sweep).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -46,20 +48,30 @@ def postprocess_topk(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     return scores, idx % K, boxes
 
 
-def nms_decode(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
-               score_threshold: float, nms_iou: float) -> List[List[int]]:
-    """Labels per line after NMS and the score threshold, in x order; the
-    top-k keeps as many (query, class) pairs as there are queries, as
-    the reference's 900 (evaluation.py:97)."""
-    scores, labels, boxes = postprocess_topk(pred_logits, pred_boxes,
-                                             pred_logits.shape[1])
+def nms_candidates(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
+                   nms_iou: float) -> Dict[str, np.ndarray]:
+    """On the host: the top-k (query, class) pairs' scores, labels and box
+    x-centres, and the NMS keep mask; the top-k keeps as many pairs as
+    there are queries, as the reference's 900 (evaluation.py:97)."""
+    scores, labels, boxes = postprocess_topk(pred_logits, pred_boxes, pred_logits.shape[1])
     keep = batched_nms_mask(box_cxcywh_to_xyxy(boxes), scores, nms_iou)
-    keep = (keep & (scores > score_threshold)).cpu().numpy()
-    labels = labels.cpu().numpy()
-    cx = boxes[..., 0].cpu().numpy()
+    return {"scores": scores.cpu().numpy(), "labels": labels.cpu().numpy(),
+            "cx": boxes[..., 0].cpu().numpy(), "keep": keep.cpu().numpy()}
+
+
+def threshold_labels(cand: Dict[str, np.ndarray], score_threshold: float) -> List[List[int]]:
+    """Labels per line of the kept pairs scoring above the threshold, in
+    x order."""
+    keep = cand["keep"] & (cand["scores"] > np.float32(score_threshold))
     out = []
     for b in range(keep.shape[0]):
         idx = np.nonzero(keep[b])[0]
-        idx = idx[np.argsort(cx[b, idx], kind="stable")]
-        out.append([int(labels[b, i]) for i in idx])
+        idx = idx[np.argsort(cand["cx"][b, idx], kind="stable")]
+        out.append([int(cand["labels"][b, i]) for i in idx])
     return out
+
+
+def nms_decode(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
+               score_threshold: float, nms_iou: float) -> List[List[int]]:
+    """Labels per line after NMS and the score threshold, in x order."""
+    return threshold_labels(nms_candidates(pred_logits, pred_boxes, nms_iou), score_threshold)

@@ -1,6 +1,9 @@
 """The training recipes' settings: CTC finetuning (``RECIPE``) and the
 detection pretraining that made every shipped trunk (``RECIPE_DETECTION``).
 
+The data settings (``DataConfig``), shared by both recipes, are those of
+the batches the shipped checkpoints trained on.
+
 CTC finetuning:
 
 The port's own copy of the values in outputs/finetune_r4b/config_cfg.py
@@ -13,12 +16,30 @@ has no field: the port's modules have no dropout (``steps_per_epoch``
 
 from __future__ import annotations
 
+import dataclasses
+import typing
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass
-class TrainConfig:
+class DataConfig:
+    """``BucketBatcher``'s settings (data/batching.py) in the recipe."""
+
+    data_aug_scales: Tuple[int, ...] = (128,)  # finetune_r4b/config_cfg.py:16, round4_chain.sh:52
+    data_aug_max_size: int = 1024      # finetune_r4b/config_cfg.py:14, round4_chain.sh:52
+    image_w_max: int = 1024            # finetune_r4b/config_cfg.py:51, round4_chain.sh:53
+    image_h_max: Optional[int] = 192   # finetune_r4b/config_cfg.py:50, round4_chain.sh:53
+    transfer_uint8: bool = True        # finetune_r4b/config_cfg.py:97, Latin_TPU.py:46
+    truly_random_erasing: bool = False  # dtlr_tpu/train/pretrain.py:223 (unset in Latin.py)
+    h_quant: int = 64                  # dtlr_tpu/data/batching.py:196 (never overridden)
+    # the pretraining's sample reuse (synthetic_reuse, Latin_TPU.py:51);
+    # the finetune passes none (dtlr_tpu/train/finetune.py:206-214)
+    reuse: int = 1
+
+
+@dataclass
+class TrainConfig(DataConfig):
     batch_size: int = 8
     epochs: int = 2
     max_iterations: int = 6000
@@ -48,7 +69,7 @@ RECIPE = TrainConfig()
 
 
 @dataclass
-class PretrainConfig:
+class PretrainConfig(DataConfig):
     """The detection pretraining recipe that made ``artifacts/r4run_params.npz``
     (scripts/round4_chain.sh:43-56 on dtlr_tpu/configs/Latin_TPU.py and its
     base Latin.py). Each value's source is beside it. The model's CDN
@@ -70,6 +91,7 @@ class PretrainConfig:
     lr_drop_list: Tuple[int, ...] = (33, 45)  # Latin.py:23
     onecyclelr: bool = False           # Latin.py:21
     use_ema: bool = True               # round4_chain.sh:51
+    reuse: int = 4                     # synthetic_reuse, Latin_TPU.py:51
     ema_decay: float = 0.9997          # Latin.py:86
     # matcher (dtlr_tpu/ops/matcher.py) and loss (dtlr_tpu/losses/criterion.py)
     matcher_impl: str = "jax"          # Latin.py:99, the auction
@@ -86,3 +108,35 @@ class PretrainConfig:
 
 
 RECIPE_DETECTION = PretrainConfig()
+
+
+def _parse_value(text: str, kind):
+    if typing.get_origin(kind) is typing.Union:  # Optional[int]
+        if text.lower() == "none":
+            return None
+        kind = typing.get_args(kind)[0]
+    if kind is bool:
+        if text.lower() not in ("true", "false", "1", "0"):
+            raise ValueError(f"not a bool: {text!r}")
+        return text.lower() in ("true", "1")
+    if typing.get_origin(kind) is tuple:
+        return tuple(int(v) for v in text.strip("()[]").split(",") if v.strip())
+    return kind(text)
+
+
+def apply_options(train_cfg, model_cfg, options):
+    """``key=value`` strings onto the training settings (a ``TrainConfig``
+    or ``PretrainConfig``) and the model's ``DinoConfig``; each key belongs
+    to one of them, an unknown key raises."""
+    train_hints = typing.get_type_hints(type(train_cfg))
+    model_hints = typing.get_type_hints(type(model_cfg))
+    train_kw, model_kw = {}, {}
+    for opt in options or ():
+        key, _, value = opt.partition("=")
+        if key in train_hints:
+            train_kw[key] = _parse_value(value, train_hints[key])
+        elif key in model_hints:
+            model_kw[key] = _parse_value(value, model_hints[key])
+        else:
+            raise KeyError(f"unknown option {key!r}")
+    return dataclasses.replace(train_cfg, **train_kw), dataclasses.replace(model_cfg, **model_kw)

@@ -5,11 +5,12 @@ finetuning (greedy CER/WER evaluation), ``mode="detection"`` the DINO
 detection pretraining step with contrastive denoising (detection-loss
 evaluation).
 
-Batches are dicts of numpy arrays as ``line_batches`` makes them:
-``images`` (B, H, W, 3) uint8, ``valid_hw`` (B, 2) int32, ``labels``
-(B, N) int32, ``valid`` (B, N) bool, ``texts``, and for lines with
-character boxes ``boxes`` (B, N, 4) cxcywh in [0, 1]. The loop copies
-each to the device and reads the step's metrics back only every
+Batches are ``data.batching.Batch``es as ``BucketBatcher`` makes them
+(``images`` (B, H, W, 3) uint8, ``valid_hw`` (B, 2) int32, ``labels``
+(B, N) int32, ``boxes`` (B, N, 4) cxcywh in [0, 1], ``valid`` (B, N)
+bool, ``texts``), or dicts of the same arrays (``collate`` makes one of
+committed lines, as they are, for the checks of a first step). The loop
+copies each to the device and reads the step's metrics back only every
 ``print_freq`` steps.
 """
 
@@ -20,12 +21,13 @@ import json
 import os
 import time
 import types
-from typing import Dict, Iterable, Iterator, Mapping, Optional, Sequence
+from typing import Dict, Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..data.batching import Batch
 from ..data.charset import labels_to_text, text_to_labels
 from ..eval import metrics
 from ..eval.decode import greedy_decode, greedy_labels, nms_decode
@@ -74,27 +76,17 @@ def collate(lines: Mapping, index: Sequence[int], charset: Sequence[str],
     return batch
 
 
-def line_batches(lines: Mapping, batch_size: int, charset: Sequence[str], max_targets: int,
-                 seed: Optional[int] = None) -> Iterator[Dict[str, object]]:
-    """Batches of pre-rendered lines: with ``seed``, endless reshuffled
-    passes drawn from ``np.random.default_rng(seed)``; without, one pass
-    in order."""
-    n = len(lines["texts"])
-    if seed is None:
-        for i in range(0, n, batch_size):
-            yield collate(lines, range(i, min(i + batch_size, n)), charset, max_targets)
-        return
-    if n < batch_size:
-        raise ValueError(f"{n} lines cannot fill a batch of {batch_size}")
-    rng = np.random.default_rng(seed)
-    order = np.arange(n)
-    while True:
-        rng.shuffle(order)
-        for i in range(0, n - batch_size + 1, batch_size):
-            yield collate(lines, order[i:i + batch_size], charset, max_targets)
+def batch_to_arrays(batch) -> Dict[str, object]:
+    """A ``Batch`` as a dict of its arrays and texts (counterpart of
+    dtlr_tpu/train/engine.py:36-43); a dict passes as it is."""
+    if isinstance(batch, Batch):
+        return {"images": batch.images, "valid_hw": batch.valid_hw, "labels": batch.labels,
+                "boxes": batch.boxes, "valid": batch.valid, "texts": batch.texts}
+    return batch
 
 
-def to_device(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
+def to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    batch = batch_to_arrays(batch)
     return {k: torch.from_numpy(np.asarray(batch[k])).to(device, non_blocking=True)
             for k in ("images", "valid_hw", "labels", "valid", "boxes") if k in batch}
 
@@ -167,8 +159,8 @@ class Trainer:
                  f"{'head-only' if head_only else 'full-model'} optimizer, {self.mode} step")
 
     # ------------------------------------------------------------ loops
-    def step(self, batch: Mapping, mark=None) -> Dict[str, torch.Tensor]:
-        """One train step on a ``line_batches`` batch; the metrics stay on
+    def step(self, batch, mark=None) -> Dict[str, torch.Tensor]:
+        """One train step on a batch; the metrics stay on
         the device. ``mark`` goes to the detection step (its phases' ends)."""
         arrays = to_device(batch, self.device)
         if self.mode == "detection":
@@ -177,7 +169,7 @@ class Trainer:
             self.state, metrics = self.step_fn(self.state, arrays)
         return metrics
 
-    def train_epoch(self, batches: Iterable[Mapping], max_iterations: int = -1) -> Dict[str, float]:
+    def train_epoch(self, batches: Iterable, max_iterations: int = -1) -> Dict[str, float]:
         """Steps over ``batches`` (at most ``max_iterations``); the metrics
         are read back every ``cfg.print_freq`` steps and averaged over
         those reads."""
@@ -210,7 +202,7 @@ class Trainer:
         return stats
 
     @torch.no_grad()
-    def evaluate_detection(self, batches: Iterable[Mapping]) -> Dict[str, float]:
+    def evaluate_detection(self, batches: Iterable) -> Dict[str, float]:
         """The detection loss alone over ``batches`` (reference
         engine.py:277-340, dtlr_tpu/train/engine.py:319-355): the eval
         forward (no denoising queries), the matched losses, no decode.
@@ -240,7 +232,7 @@ class Trainer:
         return stats
 
     @torch.no_grad()
-    def evaluate_ctc(self, batches: Iterable[Mapping], charset: Sequence[str]) -> Dict[str, float]:
+    def evaluate_ctc(self, batches: Iterable, charset: Sequence[str]) -> Dict[str, float]:
         """Greedy CER/WER (corpus, standardized) and the NMS decode's CER
         at TH 0.3 / NMS 0.5, with the mean CTC loss, over ``batches``."""
         model = self.state.model
@@ -256,7 +248,7 @@ class Trainer:
             preds += [labels_to_text(l, charset) for l in greedy_labels(frames)]
             nms_preds += [labels_to_text(l, charset) for l in
                           nms_decode(out["pred_logits"], out["pred_boxes"], 0.3, 0.5)]
-            gts += list(batch["texts"])
+            gts += list(batch_to_arrays(batch)["texts"])
         stats = {"cer": metrics.corpus_cer(preds, gts), "wer": metrics.corpus_wer(preds, gts),
                  "nms_cer": metrics.corpus_cer(nms_preds, gts),
                  "loss_CTC": float(np.mean(losses)) if losses else float("nan"),

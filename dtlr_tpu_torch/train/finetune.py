@@ -13,12 +13,17 @@ Usage:
         --output_dir outputs/finetune [--epochs 2] [--device cuda] \\
         [--options max_iterations=100 compute_dtype=float32 ...]
 
-``--lines`` is an npz of pre-rendered lines as ``eval/evaluate.py``'s
-``load_lines`` reads them (uint8 ``images``, ``valid_hw``, ``texts``,
-``charset``); ``--val_lines`` (default: the same file) is evaluated
-every ``eval_epoch`` epochs. The training settings are the recipe's
-(``train/config.py``); ``--options key=value`` overrides any field of
-``TrainConfig`` or of the model's ``DinoConfig``.
+``--lines`` is an npz of pre-rendered lines (``data/loaders.py``'s
+``NpzLines``: uint8 ``images``, ``valid_hw``, ``texts``, ``charset``);
+``--val_lines`` (default: the same file) is evaluated every
+``eval_epoch`` epochs. Training lines come reshuffled from
+``default_rng(0)`` through the recipe's ``BucketBatcher`` (seed
+``--seed``): resized to the drawn scale, squashed to ``image_h_max``
+rows, four random erasings, 64-row buckets, uint8; validation lines in
+order, unaugmented (seed 7), as dtlr_tpu/train/finetune.py:206-268 has
+them. The training settings are the recipe's (``train/config.py``);
+``--options key=value`` overrides any field of ``TrainConfig`` or of
+the model's ``DinoConfig``.
 """
 
 from __future__ import annotations
@@ -27,16 +32,16 @@ import argparse
 import dataclasses
 import json
 import os
-import typing
 
 import torch
 
+from ..data.batching import make_batcher
 from ..data.charset import load_charset_file, load_default_charset
-from ..eval.evaluate import load_lines
-from ..models.dino import FLAGSHIP, DinoConfig
+from ..data.loaders import NpzLines, dataset_iter, eval_iter
+from ..models.dino import FLAGSHIP
 from . import checkpoints as ckpt_lib
-from .config import RECIPE
-from .engine import Trainer, line_batches
+from .config import RECIPE, apply_options
+from .engine import Trainer
 
 
 def parse_args(argv=None):
@@ -59,37 +64,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _parse_value(text: str, kind):
-    if kind is bool:
-        if text.lower() not in ("true", "false", "1", "0"):
-            raise ValueError(f"not a bool: {text!r}")
-        return text.lower() in ("true", "1")
-    if typing.get_origin(kind) is tuple:
-        return tuple(int(v) for v in text.strip("()[]").split(",") if v.strip())
-    return kind(text)
-
-
-def apply_options(train_cfg, model_cfg: DinoConfig, options):
-    """``key=value`` strings onto the training settings (a ``TrainConfig``
-    or ``PretrainConfig``) and the model's ``DinoConfig``; each key belongs
-    to one of them, an unknown key raises."""
-    train_hints = typing.get_type_hints(type(train_cfg))
-    model_hints = typing.get_type_hints(DinoConfig)
-    train_kw, model_kw = {}, {}
-    for opt in options or ():
-        key, _, value = opt.partition("=")
-        if key in train_hints:
-            train_kw[key] = _parse_value(value, train_hints[key])
-        elif key in model_hints:
-            kind = model_hints[key]
-            if typing.get_origin(kind) is typing.Union:  # Optional[int]
-                kind = typing.get_args(kind)[0]
-            model_kw[key] = _parse_value(value, kind)
-        else:
-            raise KeyError(f"unknown option {key!r}")
-    return dataclasses.replace(train_cfg, **train_kw), dataclasses.replace(model_cfg, **model_kw)
-
-
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg, model_cfg = apply_options(RECIPE, FLAGSHIP, args.options)
@@ -98,9 +72,9 @@ def main(argv=None) -> dict:
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    lines = load_lines(args.lines)
-    val_lines = load_lines(args.val_lines) if args.val_lines else lines
-    charset = list(lines["charset"])
+    train_ds = NpzLines(args.lines)
+    val_ds = NpzLines(args.val_lines) if args.val_lines else train_ds
+    charset = train_ds.charset
     trainer = Trainer(cfg, model_cfg, args.output_dir, args.device)
     with open(os.path.join(args.output_dir, "config_cfg.json"), "w") as fh:
         json.dump({"train": dataclasses.asdict(cfg), "model": dataclasses.asdict(model_cfg),
@@ -135,21 +109,26 @@ def main(argv=None) -> dict:
     if args.resume_finetuning:
         trainer.try_resume()
 
-    train_batches = line_batches(lines, cfg.batch_size, charset, cfg.max_targets, seed=args.seed)
+    space_label = charset.index(" ") if " " in charset else -1
+    train_batches = make_batcher(cfg, dataset_iter(train_ds), True, args.seed, space_label)
     best_cer = float("inf")
     result = {}
-    for epoch in range(trainer.epoch, cfg.epochs):
-        stats = trainer.train_epoch(train_batches, max_iterations=cfg.max_iterations)
-        trainer.log(f"epoch {epoch}: {stats}")
-        trainer.save()
-        result = {"train": stats}
-        if (epoch + 1) % cfg.eval_epoch == 0:
-            est = trainer.evaluate_ctc(
-                line_batches(val_lines, cfg.batch_size, charset, cfg.max_targets), charset)
-            result["eval"] = est
-            if est["cer"] < best_cer:
-                best_cer = est["cer"]
-                trainer.save("checkpoint_best_regular")
+    try:
+        for epoch in range(trainer.epoch, cfg.epochs):
+            stats = trainer.train_epoch(iter(train_batches), max_iterations=cfg.max_iterations)
+            trainer.log(f"epoch {epoch}: {stats}")
+            trainer.save()
+            result = {"train": stats}
+            if (epoch + 1) % cfg.eval_epoch == 0:
+                val_batches = make_batcher(cfg, eval_iter(val_ds), False, 7, space_label)
+                est = trainer.evaluate_ctc(iter(val_batches), charset)
+                val_batches.stop()
+                result["eval"] = est
+                if est["cer"] < best_cer:
+                    best_cer = est["cer"]
+                    trainer.save("checkpoint_best_regular")
+    finally:
+        train_batches.stop()
     return result
 
 

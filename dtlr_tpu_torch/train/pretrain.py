@@ -9,11 +9,14 @@ Usage:
         [--val_lines ...] [--device cuda] [--compute_dtype bfloat16] \\
         [--options warmup_steps=0 matcher_impl=scipy ...]
 
-``--lines`` is an npz of pre-rendered lines as ``eval/evaluate.py``'s
-``load_lines`` reads them, with per line ``labels`` (N,) int32,
-``boxes`` (N, 4) cxcywh in [0, 1] and ``valid`` (N,) bool beside the
-uint8 ``images``, ``valid_hw`` and ``texts``
-(``dtlr_tpu_torch/assets/smoke_detect.npz`` is one). The settings are the
+``--lines`` is an npz of pre-rendered lines (``data/loaders.py``'s
+``NpzLines``), with per line ``labels`` (N,) int32, ``boxes`` (N, 4)
+cxcywh in [0, 1] and ``valid`` (N,) bool beside the uint8 ``images``,
+``valid_hw`` and ``texts`` (``dtlr_tpu_torch/assets/smoke_detect.npz`` is
+one). Training lines come reshuffled from ``default_rng(0)`` through the
+recipe's ``BucketBatcher`` with the reuse pool (seed ``--seed``), the
+validation lines in order, unaugmented (seed ``--seed`` + 7), as
+dtlr_tpu/train/pretrain.py:214-246 has them. The settings are the
 recipe's (``train/config.py``'s ``RECIPE_DETECTION`` and the model's
 ``DinoConfig``); ``--options key=value`` overrides any of their fields.
 The run takes ``--steps`` steps, saves the train state and the weights
@@ -30,12 +33,12 @@ import os
 
 import torch
 
-from ..eval.evaluate import load_lines
+from ..data.batching import make_batcher
+from ..data.loaders import NpzLines, dataset_iter, eval_iter
 from ..models.dino import FLAGSHIP
 from . import checkpoints as ckpt_lib
-from .config import RECIPE_DETECTION
-from .engine import Trainer, line_batches
-from .finetune import apply_options
+from .config import RECIPE_DETECTION, apply_options
+from .engine import Trainer
 
 
 def parse_args(argv=None):
@@ -61,12 +64,12 @@ def main(argv=None) -> dict:
     if args.device.startswith("cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    lines = load_lines(args.lines)
-    val_lines = load_lines(args.val_lines) if args.val_lines else lines
-    if "boxes" not in lines:
+    train_ds = NpzLines(args.lines)
+    val_ds = NpzLines(args.val_lines) if args.val_lines else train_ds
+    if "boxes" not in train_ds.arrays:
         raise ValueError(f"{args.lines} has no character boxes: the detection step needs "
                          "labels, boxes and valid per line")
-    charset = list(lines["charset"])
+    charset = train_ds.charset
     trainer = Trainer(cfg, model_cfg, args.output_dir, args.device, mode="detection",
                       seed=args.seed)
     with open(os.path.join(args.output_dir, "config_cfg.json"), "w") as fh:
@@ -75,14 +78,21 @@ def main(argv=None) -> dict:
     params = ckpt_lib.load_params_npz(args.params)
     trainer.log(f"loaded params snapshot {args.params}")
     trainer.build(params)
-    batches = line_batches(lines, cfg.batch_size, charset, cfg.max_targets, seed=args.seed)
-    stats = trainer.train_epoch(batches, max_iterations=args.steps)
+    space_label = charset.index(" ") if " " in charset else -1
+    batches = make_batcher(cfg, dataset_iter(train_ds), True, args.seed, space_label,
+                           reuse=cfg.reuse, erasing=cfg.truly_random_erasing)
+    try:
+        stats = trainer.train_epoch(iter(batches), max_iterations=args.steps)
+    finally:
+        batches.stop()
     trainer.log(f"trained {args.steps} steps: {stats}")
     trainer.save()
     weights = os.path.join(args.output_dir, "params.npz")
     ckpt_lib.export_params_npz(trainer.state.model, weights, dtype=None)
-    est = trainer.evaluate_detection(
-        line_batches(val_lines, cfg.batch_size, charset, cfg.max_targets))
+    val_batches = make_batcher(cfg, eval_iter(val_ds), False, args.seed + 7, space_label,
+                               erasing=cfg.truly_random_erasing)
+    est = trainer.evaluate_detection(iter(val_batches))
+    val_batches.stop()
     return {"train": stats, "eval": est, "params": weights}
 
 

@@ -38,7 +38,7 @@ CTC_EPS, MAX_TARGETS = 0.003, 64
 
 
 def fixture_labels(texts, charset):
-    """The texts as padded labels, as the port's ``line_batches`` makes them."""
+    """The texts as padded labels, as the port's ``engine.collate`` makes them."""
     from dtlr_tpu_torch.train.engine import collate
 
     b = collate({"texts": texts, "images": np.zeros((len(texts), 1, 1, 3), np.uint8),

@@ -1,0 +1,149 @@
+"""The port's host transforms (dtlr_tpu_torch/data/transforms.py) against
+the JAX package's (dtlr_tpu/data/transforms.py) on seeded images and
+boxes: the same outputs and the same random draws (each case ends by
+comparing the two generators' next draw).
+
+The resize is the one place the JAX package leaves numpy: it upscales
+with its C++ helper (dtlr_tpu/runtime/native.cpp, built with ``-O3
+-march=native``, so each ``a + (b - a) * w`` is one fused multiply-add)
+and downscales with PIL's bilinear filter through uint8. The port
+computes both with torch on the CPU. Both directions are held bitwise:
+0 of the pixels differ (the bound the port was asked for is 1/255 on a
+small share for the downscale and fp32 rounding for the upscale). A
+plain bilinear without the fused multiply-add differs from the helper in
+the last bit and flips hundreds of uint8 pixels over these cases, so
+JAX's own run must take the helper, not PIL, for its upscale.
+"""
+
+import time
+
+import numpy as np
+import pytest
+
+from dtlr_tpu.data import transforms as J
+from dtlr_tpu.runtime import native
+from dtlr_tpu_torch.data import transforms as T
+
+
+def load_native_helper():
+    """JAX's C++ helper, built by ``make`` on first use. Test workers
+    start together, and one may find the library half written by
+    another's build: then it tries again."""
+    for _ in range(60):
+        if native._load() is not None:
+            return True
+        native._build_failed = False
+        time.sleep(1.0)
+    return False
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_helper():
+    assert load_native_helper()
+
+
+def pair(seed):
+    return np.random.default_rng(seed), np.random.default_rng(seed)
+
+
+def same_stream(rj, rt):
+    assert rj.random() == rt.random()
+
+
+def image(rng, h, w, quantized):
+    if quantized:  # a decoded line: k / 255
+        return rng.integers(0, 256, (h, w, 3)).astype(np.float32) / 255.0
+    return rng.random((h, w, 3), dtype=np.float32)
+
+
+def boxes(rng, h, w, n=12):
+    x0 = rng.uniform(0, w - 2, n)
+    y0 = rng.uniform(0, h - 2, n)
+    return np.stack([x0, y0, np.minimum(x0 + rng.uniform(1, 40, n), w),
+                     np.minimum(y0 + rng.uniform(1, 40, n), h)], -1).astype(np.float32)
+
+
+def test_jax_upscales_through_the_native_helper():
+    assert native._load() is not None and native.resize_bilinear(
+        np.zeros((2, 2, 3), np.float32), 3, 3) is not None
+
+
+@pytest.mark.parametrize("direction", ["up", "down", "mixed"])
+def test_resize_bitwise(direction):
+    rng = np.random.default_rng({"up": 1, "down": 2, "mixed": 3}[direction])
+    differing = 0
+    for case in range(40):
+        h, w = int(rng.integers(2, 160)), int(rng.integers(2, 500))
+        if direction == "up":
+            oh, ow = h + int(rng.integers(0, 90)), w + int(rng.integers(0, 300))
+        elif direction == "down":
+            oh, ow = int(rng.integers(1, h + 1)), int(rng.integers(1, w + 1))
+        else:
+            oh, ow = h + int(rng.integers(1, 60)), int(rng.integers(1, w + 1))
+        img = image(rng, h, w, quantized=case % 2 == 0)
+        want = J._interp_resize(img, oh, ow)
+        got = T._interp_resize(img, oh, ow)
+        assert got.dtype == np.float32 and got.shape == (oh, ow, 3)
+        differing += int((got != want).sum())
+    assert differing == 0
+
+
+@pytest.mark.parametrize("size,max_size", [(128, 1024), (64, 256), (200, None)])
+def test_resize_min_side(size, max_size):
+    rng = np.random.default_rng(size)
+    for _ in range(8):
+        h, w = int(rng.integers(20, 240)), int(rng.integers(20, 900))
+        img, bx = image(rng, h, w, True), boxes(rng, h, w)
+        want = J.resize_min_side(img, bx, size, max_size)
+        got = T.resize_min_side(img, bx, size, max_size)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_normalize_boxes():
+    rng = np.random.default_rng(4)
+    bx = boxes(rng, 100, 700)
+    np.testing.assert_array_equal(T.normalize_boxes(bx, 100, 700), J.normalize_boxes(bx, 100, 700))
+    assert T.normalize_boxes(None, 1, 1) is None
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_erasings_and_photometric(seed):
+    rj, rt = pair(seed)
+    img = image(np.random.default_rng(100 + seed), 96, 400, True)
+    bx = boxes(np.random.default_rng(200 + seed), 96, 400)
+    labels = np.asarray([3, 1, 165, 4, 4, 165, 2, 7, 165, 1, 1, 2], np.int32)
+    cases = [
+        lambda M, r, x: M.random_erasing(r, x, p=0.5, scale=(0.005, 0.05), ratio=(5.0, 6.0)),
+        lambda M, r, x: M.random_erasing(r, x),
+        lambda M, r, x: M.random_erasing(r, x, p=1.0, scale=(0.9, 0.99), value=0.5),  # tries out
+        lambda M, r, x: M.random_erasing_full_vertical(r, x, p=0.5, n_range=(1, 3),
+                                                       width_frac=(0.005, 0.03)),
+        lambda M, r, x: M.instance_aware_erasing(r, x, bx, labels, 165, p=0.9, word_p=0.5),
+        lambda M, r, x: M.adjust_brightness_contrast(r, x),
+        lambda M, r, x: M.lighting_noise(r, x),
+    ]
+    for fn in cases:
+        np.testing.assert_array_equal(fn(T, rt, img), fn(J, rj, img))
+        same_stream(rj, rt)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_crops_and_scales2_chain(seed):
+    rj, rt = pair(seed)
+    src = np.random.default_rng(300 + seed)
+    h, w = int(src.integers(60, 200)), int(src.integers(200, 800))
+    img, bx = image(src, h, w, True), boxes(src, h, w)
+    labels = np.arange(len(bx), dtype=np.int32)
+    region = (5, 17, h // 2, w // 3)
+    for a, b in zip(T.crop_with_boxes(img, bx, labels, region),
+                    J.crop_with_boxes(img, bx, labels, region)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(T.random_size_crop(rt, img, bx, labels, 40, 300),
+                    J.random_size_crop(rj, img, bx, labels, 40, 300)):
+        np.testing.assert_array_equal(a, b)
+    same_stream(rj, rt)
+    for a, b in zip(T.scales2_chain(rt, img, bx, labels, [100, 140], [48, 120], [64], 512),
+                    J.scales2_chain(rj, img, bx, labels, [100, 140], [48, 120], [64], 512)):
+        np.testing.assert_array_equal(a, b)
+    same_stream(rj, rt)
