@@ -14,22 +14,30 @@ Phases, each printing one JSON line with its seconds:
            on both sides, ms per batch on the host
   build    one nvcc per CUDA source (dtlr_tpu_torch/csrc/box_attn.cu and
            row_gather.cu), all started together, for sm_90a (ptxas report:
-           registers, shared memory, spills), and the count of tensor-core
-           instructions (HMMA, HGMMA) in each attention kernel's SASS
+           registers, shared memory, spills; each attention block's dynamic
+           shared memory), and the count of tensor-core instructions (HMMA,
+           HGMMA) in each attention kernel's SASS: all six instantiations,
+           bf16 and fp32 (3xTF32), must have some
   kernels  the instantiations of the box-prior attention kernel against
            their plain PyTorch version on the card, at the decoder's shapes,
            in fp32 and bf16, on contiguous heads and on strided views built
            as the decoder builds them, the detection step's shapes (1028
            queries; the masked self-attention at Q = S = 1028 with the CDN
            group mask, whose matching rows find two key tiles blocked
-           whole, against SDPA with the boolean mask), a fully masked row (uniform and
+           whole, against SDPA with the boolean mask), V rows that ramp over
+           the key index at S = 3570 in fp32 (the kernel's key order in P.V;
+           the row also shows how far swapping each key pair would move the
+           plain version), a fully masked row (uniform and
            finite), and the row gather at the probe's shapes (an index out
            of range trips its device-side assert, checked in a child
            process); times of each kernel, its plain version and one
            library call (``ms``: events around 20 back-to-back calls, which
            the host's per-call work bounds where it exceeds the card's;
            ``graph_ms``: the same calls replayed from a CUDA graph, the card
-           alone) and the bound
+           alone; ``host_us``: the wrapper's host time per call) and the
+           bound (fp32: the 3xTF32 products at the TF32 peak, the per-score
+           floor or the bytes, with the CUDA-core bound of the earlier fp32
+           kernel beside it)
   grad     gradients through the attention kernel's autograd Function
            (q, k, v and the prior's cx, cy, ihw, ihh, gamma) against the
            plain version's autograd gradients, at the decoder's shapes
@@ -82,7 +90,8 @@ Phases, each printing one JSON line with its seconds:
            recipe's batcher with the reuse pool (each step's batch the
            data phase's)
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
-Then the line {"kernels": [...]} for every ported kernel, the card's name
+Then the line {"kernels": [...]} for every ported kernel (the attention
+in bf16 and, as ``*_fp32``, in fp32, at each dtype's path), the card's name
 and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises: exit code not 0.
 Needs torch, numpy and the repository; no network and no JAX.
@@ -106,18 +115,23 @@ LINES_BF16 = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_lines_bf16.np
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a
 # kernel is the larger of bytes / memory rate and operations / peak rate
-# for the inputs' type
+# for the inputs' type; fp32 attention runs its products on the tensor
+# cores in 3xTF32 (three TF32 products each), the gather on the CUDA cores
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12
 MEM_BYTES_PER_S = 3.35e12
 # the attention's per-score floor at D=32: besides its two products each
-# score costs fp32 instructions on the CUDA cores (scale and bias, the
-# prior's five, max, exponent argument, row sum: 9 with the prior, 4
-# without) at 128 lanes x 132 SMs x 1.98 GHz, and one ex2 on the SFUs at
-# 16 per SM per clock; the floor is the larger of the two (published
-# rates, no measurement)
+# score costs fp32 instructions on the CUDA cores at 128 lanes x 132 SMs x
+# 1.98 GHz, and one ex2 on the SFUs at 16 per SM per clock; the floor is
+# the larger of the two (published rates, no measurement). bf16: scale and
+# bias, the prior's five, max, exponent argument, row sum: 9 with the
+# prior, 4 without. fp32 adds the prior's two subtractions (its exact
+# offsets), p's split (3), the split of K and V shared by the block's
+# 8 warps (1.5 a score) and the tile's FMA into O (0.5): 16 and 9.
 LANE_OPS_PER_S = 128 * 132 * 1.98e9
 SFU_PER_S = 16 * 132 * 1.98e9
-OPS_PER_SCORE = {True: 9, False: 4}
+OPS_PER_SCORE = {(True, torch.bfloat16): 9, (False, torch.bfloat16): 4,
+                 (True, torch.float32): 16, (False, torch.float32): 9}
 
 # decoder geometry of the flagship: B lines of 8 heads x 32, 900 queries;
 # keys of the 128x1024 eval bucket (S=2720) and of the 128x1344 bench
@@ -335,17 +349,37 @@ def open_pairs(qh, kh, group=None):
     return int((~group_blocked(group)).sum())
 
 
-def bound(qh, kh, vh, key_bias, box, group=None):
-    """Least time for the work: every input read once and the output
-    written once, against the operations 2*B*M*(open pairs)*(2D + 8 with
-    the prior); a pair the mask blocks needs no work."""
-    Bq, Mq, Qq, Dq = qh.shape
-    flops = 2 * Bq * Mq * open_pairs(qh, kh, group) * (2 * Dq + (8 if box is not None else 0))
+def attention_bytes(qh, kh, vh, key_bias, box, group=None):
+    """Every input read once and the output written once."""
     tensors = ([qh, kh, vh, key_bias] + (list(box) if box is not None else [])
                + ([group] if group is not None else []))
-    nbytes = sum(t.numel() * t.element_size() for t in tensors) + Bq * Mq * Qq * Dq * 4
+    return (sum(t.numel() * t.element_size() for t in tensors)
+            + qh.shape[0] * qh.shape[1] * qh.shape[2] * qh.shape[3] * 4)
+
+
+def peak_bound(qh, kh, vh, key_bias, box, group=None):
+    """The bytes against 2*B*M*(open pairs)*(2D + 8 with the prior)
+    operations at the inputs' peak (``PEAK_FLOPS``: bf16 on the tensor
+    cores, fp32 on the CUDA cores, the bound of the earlier fp32 kernel);
+    a pair the mask blocks needs no work."""
+    Bq, Mq, Qq, Dq = qh.shape
+    flops = 2 * Bq * Mq * open_pairs(qh, kh, group) * (2 * Dq + (8 if box is not None else 0))
     t_ops = flops / PEAK_FLOPS[qh.dtype]
-    t_bytes = nbytes / MEM_BYTES_PER_S
+    t_bytes = attention_bytes(qh, kh, vh, key_bias, box, group) / MEM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound(qh, kh, vh, key_bias, box, group=None):
+    """Least time for the work. bf16: ``peak_bound``. fp32, whose
+    accuracy the kernel keeps in 3xTF32: the largest of the three TF32
+    products of both matrix products, 3 * 2*B*M*(open pairs)*2D at 495
+    TFLOP/s, the per-score floor (``score_floor``) and the bytes."""
+    if qh.dtype != torch.float32:
+        return peak_bound(qh, kh, vh, key_bias, box, group)
+    Bq, Mq, Qq, Dq = qh.shape
+    t_ops = max(3 * 2 * Bq * Mq * open_pairs(qh, kh, group) * 2 * Dq / TF32_FLOPS,
+                score_floor(qh, kh, box, group) / 1e3)
+    t_bytes = attention_bytes(qh, kh, vh, key_bias, box, group) / MEM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -353,7 +387,7 @@ def score_floor(qh, kh, box, group=None):
     """Least time for the per-score work outside the products (see
     OPS_PER_SCORE): the CUDA cores' share against the SFUs' share."""
     scores = qh.shape[0] * qh.shape[1] * open_pairs(qh, kh, group)
-    return 1e3 * max(scores * OPS_PER_SCORE[box is not None] / LANE_OPS_PER_S,
+    return 1e3 * max(scores * OPS_PER_SCORE[box is not None, qh.dtype] / LANE_OPS_PER_S,
                      scores / SFU_PER_S)
 
 
@@ -399,14 +433,19 @@ def phase_kernels(card):
     configs += [("mha_box", 2720, Q_DETECT, torch.bfloat16, True)]
     configs += [("mha_masked", Q_DETECT, Q_DETECT, dt, True)
                 for dt in (torch.float32, torch.bfloat16)]
+    # the fp32 kernel's key order: V rows that ramp over the key index
+    # under peaked attention (see ramp_values), at S = 3570
+    configs += [("mha_box", 3570, Q, torch.float32, "ramp")]
     rows = []
     for name, S, nq, dtype, strided in configs:
         prior = name == "mha_box"
-        args = attention_inputs(S, dtype, prior, gen, strided, nq)
+        args = attention_inputs(S, dtype, prior, gen, bool(strided), nq)
         if S == nq:  # the self-attention pads no key
             args = args[:3] + (torch.zeros_like(args[3]), None)
         if name == "mha_masked":
             args = args + (detect_groups(),)
+        if strided == "ramp":
+            args = (args[0] * 4, args[1], ramp_values(args[2])) + args[3:]
         out = flash_mha(*args)
         torch.cuda.synchronize()
         ref = dense_reference(*args)
@@ -426,6 +465,16 @@ def phase_kernels(card):
                "bound_ms": bound_ms, "bound_by": bound_by,
                "score_floor_ms": score_floor(args[0], args[1], args[4], *args[5:]),
                "card": card}
+        if dtype == torch.float32:
+            row["cuda_core_bound_ms"] = peak_bound(*args)[0]
+        if strided == "ramp":
+            # what swapping each key pair's values does to the plain
+            # version: the error a wrong pairing in P.V would show
+            swapped = args[2].unflatten(2, (-1, 2)).flip(3).flatten(2, 3)
+            row["values"] = "ramp"
+            row["pair_swap_err"] = float((dense_reference(args[0], args[1], swapped, *args[3:])
+                                          - ref).abs().max())
+            ok = ok and row["pair_swap_err"] > 10 * TOL[dtype]
         if name == "mha_masked":
             row["blocks_with_whole_tiles_blocked"] = whole_tiles_blocked(args[5])
         rows.append(row)
@@ -435,6 +484,16 @@ def phase_kernels(card):
         del args, out, ref
         torch.cuda.empty_cache()
     return rows
+
+
+def ramp_values(vh):
+    """V rows that ramp over the key index, 0 to 1 across each 64-key tile,
+    plus d/32 over the head dims (contiguous): the fp32 kernel reads V's
+    rows in the order of the score fragment's key pairs, and a key or dim
+    it paired with another's probability would move the output."""
+    s = torch.arange(vh.shape[2], device=vh.device, dtype=torch.float32) % 64 / 63
+    d = torch.arange(D, device=vh.device, dtype=torch.float32) / 32
+    return (s[:, None] + d).expand(vh.shape).to(vh.dtype).contiguous()
 
 
 def detect_groups():
@@ -1525,24 +1584,29 @@ def main() -> int:
     built = _build.build([flash_attn.SOURCE, gather.SOURCE])
     attn_lib = flash_attn.load_library()
     gather.load_library()
-    # tensor-core instructions per attention kernel: the bf16 one must have some
+    # tensor-core instructions per attention kernel: all six must have some
     sass = {fn: n for fn, n in _build.sass_counts(built[0]["path"]).items() if "box_attn" in fn}
+    L = len(LEVELS[2720])
     emit({"phase": "build",
           "nvcc_seconds": {os.path.basename(b["source"]): b["seconds"] for b in built},
           "ptxas": [l.strip() for b in built for l in b["ptxas"].splitlines()
                     if "entry function" in l or "registers" in l or "spill" in l],
-          # the bf16 kernel's shared memory is dynamic, outside ptxas's report
-          "bf16_dynamic_smem_bytes": {
-              f"mha_box, L={len(LEVELS[2720])}": attn_lib.dtlr_box_attn_bf16_smem(
-                  1, len(LEVELS[2720]), 0),
-              "mha": attn_lib.dtlr_box_attn_bf16_smem(0, 1, 0),
-              "mha_masked": attn_lib.dtlr_box_attn_bf16_smem(0, 1, 1)},
+          # the attention's shared memory is dynamic, outside ptxas's report
+          "dynamic_smem_bytes": {
+              f"{name} {dt}{f', L={L}' if name == 'mha_box' else ''}":
+                  attn_lib.dtlr_box_attn_smem(int(dt == "bf16"), int(name == "mha_box"),
+                                              L if name == "mha_box" else 1,
+                                              int(name == "mha_masked"))
+              for name in flash_attn.KERNELS for dt in ("bf16", "fp32")},
           "sass_tensor_core_instructions": sass,
           "seconds": time.perf_counter() - t0})
-    # three bf16 instantiations: with the prior, without it, and masked
-    bf16_kernels = [n for fn, n in sass.items() if "bf16" in fn]
-    if len(bf16_kernels) != 3 or not all(n["HMMA"] + n["HGMMA"] > 0 for n in bf16_kernels):
-        raise AssertionError(f"the bf16 attention kernels do not run on the tensor cores: {sass}")
+    # three instantiations (with the prior, without it, and masked) of the
+    # bf16 kernel and of the fp32 (3xTF32) one
+    by_type = {dt: [n for fn, n in sass.items() if f"box_attn_{dt}_kernel" in fn]
+               for dt in ("bf16", "f32")}
+    if (any(len(ks) != 3 for ks in by_type.values())
+            or not all(n["HMMA"] + n["HGMMA"] > 0 for ks in by_type.values() for n in ks)):
+        raise AssertionError(f"the attention kernels do not all run on the tensor cores: {sass}")
 
     t0 = time.perf_counter()
     rows = phase_kernels(card) + [phase_gather(card)]
@@ -1578,29 +1642,50 @@ def main() -> int:
     # self-attention of the 12 CTC steps, the gather in the probe. Every
     # path's counts beside them, the evaluate sweep's (one forward for 90
     # points) among them.
+    #
+    # The fp32 instantiations (``*_fp32``) at the shapes of the fp32 paths,
+    # the precision mode every gate against JAX's fp32 reading runs in:
+    # the cross-attention and the self-attention of the fp32 forward (read,
+    # and once per batch in the sweep), the masked self-attention of the
+    # fp32 first detection step. ``launches``: the fp32 read's forward and
+    # that detection step; every fp32 path's counts beside them.
     main_shape = {"mha_box": (2720, Q_DETECT, "bfloat16", "strided"),
                   "mha": (900, Q, "bfloat16", "strided"),
                   "mha_masked": (Q_DETECT, Q_DETECT, "bfloat16", "strided"),
+                  "mha_box_fp32": (2720, Q, "float32", "strided"),
+                  "mha_fp32": (900, Q, "float32", "strided"),
+                  "mha_masked_fp32": (Q_DETECT, Q_DETECT, "float32", "strided"),
                   "row_gather": (GATHER_S, GATHER_Q, "float32", None)}
+    train_fp32 = train_records[0]["launches_per_step"]
+    detect_fp32 = detect_records[0]["launches_per_step"]
     main_launches = {"mha_box": detect_launches["mha_box"], "mha": train_launches["mha"],
-                     "mha_masked": detect_launches["mha_masked"], **probe_launches}
-    paths = {"read_bf16_forward": launches["bfloat16"], "read_fp32_forward": launches["float32"],
-             "sweep_bf16_90_points": sweep_launches["bfloat16"],
-             "sweep_fp32_90_points": sweep_launches["float32"],
-             "ctc_train_bf16_12_steps": train_launches,
-             "detect_bf16_12_steps": detect_launches}
-    by_path = {name: {path: counts[name] for path, counts in paths.items()}
-               for name in flash_attn.KERNELS}
+                     "mha_masked": detect_launches["mha_masked"],
+                     "mha_box_fp32": launches["float32"]["mha_box"],
+                     "mha_fp32": launches["float32"]["mha"],
+                     "mha_masked_fp32": detect_fp32["mha_masked"], **probe_launches}
+    paths = {"bfloat16": {"read_bf16_forward": launches["bfloat16"],
+                          "sweep_bf16_90_points": sweep_launches["bfloat16"],
+                          "ctc_train_bf16_12_steps": train_launches,
+                          "detect_bf16_12_steps": detect_launches},
+             "float32": {"read_fp32_forward": launches["float32"],
+                         "sweep_fp32_90_points": sweep_launches["float32"],
+                         "ctc_train_fp32_first_step": train_fp32,
+                         "detect_fp32_first_step": detect_fp32}}
+    by_path = {name + suffix: {path: counts[name] for path, counts in paths[dt].items()}
+               for name in flash_attn.KERNELS
+               for suffix, dt in (("", "bfloat16"), ("_fp32", "float32"))}
     by_path["row_gather"] = {"probe": probe_launches["row_gather"]}
     replaces = {**REPLACES, "mha_masked": REPLACES["mha"]}
     kernels = []
-    for name in (*flash_attn.KERNELS, *gather.KERNELS):
+    for name, shape in main_shape.items():
+        base = name.removesuffix("_fp32")
         row = next(r for r in rows if (r["name"], r["S"], r.get("Q"), r["dtype"], r.get("layout"))
-                   == (name, *main_shape[name]))
-        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": replaces[name], "launches": main_launches[name],
-                        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                               "bound_ms", "bound_by", "library_ms")},
+                   == (base, *shape) and "values" not in r)
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES[base],
+                        "replaces": replaces[base], "dtype": row["dtype"],
+                        "launches": main_launches[name],
+                        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "graph_ms", "host_us")},
                         "launches_by_path": by_path[name]})
     emit({"kernels": kernels})
     print(card, flush=True)

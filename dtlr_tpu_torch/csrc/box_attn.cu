@@ -5,8 +5,9 @@
 //   out[b,m,q,:] = softmax_s( q.k_s / sqrt(D) - gamma_m/2 * d2(q,s) + key_bias[b,s] ) . v_s
 //   d2 = ((px_s - cx_l) * ihw_l)^2 + ((py_s - cy_l) * ihh_l)^2,  l = level of key s
 //
-// Two kernels, chosen by the inputs' type; each has a prior and a no-prior
-// instantiation, and the no-prior one a masked instantiation as well.
+// Two kernels, chosen by the inputs' type, both on the tensor cores; each
+// has a prior and a no-prior instantiation, and the no-prior one a masked
+// instantiation as well.
 //
 // The mask (the self-attention of a detection training step): the
 // contrastive denoising (CDN) queries go before the 900 matching queries,
@@ -65,11 +66,46 @@
 // issuing the next tile's q.k^T before this tile's softmax (more
 // registers, fewer warps) each measured slower.
 //
-// fp32 inputs (--compute_dtype float32): CUDA cores, fp32 products (its
-// 1e-4 tolerance rules out bf16 or TF32 products). Bound by operations:
-// 2*B*M*Q*S*(2D+8) = 22.6 GFLOP at S=2720 against 67 TFLOP/s. Each key row
-// is read from shared memory once per warp as float4 broadcasts and used
-// for two queries per thread.
+// fp32 inputs (--compute_dtype float32, the precision mode every gate
+// against the JAX package's fp32 reading runs in): tensor cores in
+// 3xTF32. A single TF32 product keeps 11 bits of each operand, about 1e-3
+// relative, which the 1e-4 tolerance rules out; so each fp32 operand x is
+// split into big = tf32(x) and small = tf32(x - big), and every product is
+// formed as small.big + big.small + big.big with mma.sync.m16n8k8.tf32 and
+// fp32 accumulators (CUTLASS's OpMultiplyAddFastF32): only small.small,
+// about 2^-22 relative, is dropped, so the result keeps fp32's accuracy.
+// What bounds it on this card: the three products of both matrix
+// products, 3 * 2*B*M*Q*S*2D = 60.2 GFLOP at S=2720, take 0.122 ms at 495
+// TFLOP/s of dense TF32, more than the per-score work on the CUDA cores
+// (about 16 instructions: the bf16 kernel's, the prior's exact offsets, p's
+// split and sum, K's and V's split; 0.075 ms) or the bytes. What the
+// design does about it:
+// - the bf16 kernel's structure: warps of 16 query rows, 64-key tiles
+//   through the same two-stage cp.async ring, the same logits, mask and
+//   online softmax per tile, P kept in registers;
+// - K and V are split once per tile, after their copy lands: each thread
+//   splits the 16-byte chunks it copied itself (no barrier needed before),
+//   big in place and small into a second plane, so the eight warps that
+//   read the tile split nothing; Q is split once per block, in registers;
+//   p per score (three instructions);
+// - no shuffles: the dims of a k-step are permuted (k index t takes dim
+//   8t + 2ks, t + 4 takes 8t + 2ks + 1) so a lane reads its Q and K
+//   fragments as two 16-byte loads per 8 keys, and the score fragment's
+//   key columns 2t, 2t+1 become P.V's k indices t, t+4, with V's rows
+//   read in that order and its dims permuted the same way (n-tile n,
+//   column c takes dim 4c + n), so a lane also reads V as two 16-byte
+//   loads per 8 keys and writes its 8 output dims as two;
+// - shared rows of 36 floats: each quarter warp's 16-byte loads fall in 8
+//   distinct bank groups;
+// - accuracy: the tensor cores' fp32 sums are not rounded to nearest, so
+//   each tile's P.V starts from zero and joins O by one fp32 FMA (on an
+//   H100 80GB HBM3 at 700 W one chain over all 900 keys of the
+//   self-attention measured several times the error of a chain per
+//   tile); the prior's offsets are formed as (px - cx) * ax, as
+//   dense_reference forms them, and the row sums are taken in fp32 on the
+//   CUDA cores (a column of ones would round p to tf32).
+// On that card it takes 0.52 ms at Q=900, S=2720 (the earlier CUDA-core
+// kernel 1.16 ms, SDPA in fp32 1.62 ms), a quarter of its bound.
 //
 // Layout: q, k, v and out are indexed through the element strides of their
 // batch, head and row axes (unit stride on D), so the decoder passes its
@@ -99,236 +135,25 @@ struct Layout {
 };
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// What both kernels share: the block shape, the ring, the logits, the mask
+// and the online softmax
 // ---------------------------------------------------------------------------
-namespace f32 {
 
-constexpr int BQ = 64;            // queries per block
-constexpr int BK = 64;            // keys per shared-memory tile
-constexpr int WARPS = 4;          // each warp takes BK / WARPS keys of a tile
-constexpr int THREADS = WARPS * 32;
-constexpr int QPT = BQ / 32;      // queries per thread
-constexpr int KPW = BK / WARPS;   // keys per warp per tile
-
-// One block per (64-query tile, head m, batch b). Its four warps split each
-// 64-key tile into four runs of 16 keys; every lane holds two queries
-// (lane, lane + 32) with their running max, normalizer and accumulator in
-// registers. The warps' partial softmaxes are merged in shared memory in a
-// fixed order.
-template <bool PRIOR, bool MASK>
-__global__ void __launch_bounds__(THREADS)
-box_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ key_bias,
-                    const float* __restrict__ cx, const float* __restrict__ cy,
-                    const float* __restrict__ ihw, const float* __restrict__ ihh,
-                    const int* __restrict__ level, const float* __restrict__ px,
-                    const float* __restrict__ py, const float* __restrict__ gamma,
-                    const int* __restrict__ group, float* __restrict__ out, Layout lay, int Q,
-                    int S, int L, float scale) {
-  __shared__ __align__(16) float ks[BK][D];
-  __shared__ __align__(16) float vs[BK][D];
-  __shared__ float kbias[BK];
-  __shared__ float kpx[BK];
-  __shared__ float kpy[BK];
-  __shared__ int klvl[BK];
-  __shared__ int kgrp[MASK ? BK : 1];
-  __shared__ float box[PRIOR ? MAX_L * 4 : 1][BQ];  // [level*4 + {cx,cy,ihw,ihh}][query]
-  __shared__ float part_max[WARPS][BQ];
-  __shared__ float part_sum[WARPS][BQ];
-  __shared__ float out_tile[BQ][D + 1];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ;
-  const int m = blockIdx.y;
-  const int b = blockIdx.z;
-  const float* qg = q + b * lay.q.b + m * lay.q.m;
-  const float* kg = k + b * lay.k.b + m * lay.k.m;
-  const float* vg = v + b * lay.v.b + m * lay.v.m;
-  const int k_r = (int)lay.k.r, v_r = (int)lay.v.r;  // rows span < 2^31 elements
-  const float* kbg = key_bias + (size_t)b * S;
-
-  float qr[QPT][D];
-  float acc[QPT][D];
-  float run_max[QPT];
-  float run_sum[QPT];
-  int qgrp[QPT];  // the rows' CDN groups (MASK)
-#pragma unroll
-  for (int i = 0; i < QPT; ++i) {
-    const int qi = q0 + lane + 32 * i;
-    if constexpr (MASK) qgrp[i] = qi < Q ? group[qi] : -2;
-    const float* qrow = qg + (qi < Q ? qi : 0) * lay.q.r;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qr[i][d] = qi < Q ? qrow[d] * scale : 0.f;
-      acc[i][d] = 0.f;
-    }
-    run_max[i] = -1e30f;
-    run_sum[i] = 0.f;
-  }
-
-  float half_gamma = 0.f;
-  if constexpr (PRIOR) {
-    half_gamma = 0.5f * gamma[m];
-    for (int t = tid; t < L * 4 * BQ; t += THREADS) {
-      const int qq = t % BQ;
-      const int p = (t / BQ) % 4;
-      const int l = t / (4 * BQ);
-      const int qi = q0 + qq;
-      const float* src = p == 0 ? cx : p == 1 ? cy : p == 2 ? ihw : ihh;
-      // queries past Q get a finite box: their rows are never written
-      box[l * 4 + p][qq] = qi < Q ? src[((size_t)b * Q + qi) * L + l] : 1.f;
-    }
-  }
-
-  for (int s0 = 0; s0 < S; s0 += BK) {
-    const int n = min(BK, S - s0);
-    __syncthreads();  // the previous tile is consumed (and the box is staged)
-    for (int t = tid; t < n * (D / 4); t += THREADS) {  // rows are 16-byte aligned
-      const int j = t / (D / 4), d = 4 * (t % (D / 4));
-      *reinterpret_cast<float4*>(&ks[j][d]) =
-          *reinterpret_cast<const float4*>(kg + ((s0 + j) * k_r + d));
-      *reinterpret_cast<float4*>(&vs[j][d]) =
-          *reinterpret_cast<const float4*>(vg + ((s0 + j) * v_r + d));
-    }
-    for (int t = tid; t < n; t += THREADS) {
-      kbias[t] = kbg[s0 + t];
-      if constexpr (MASK) kgrp[t] = group[s0 + t];
-      if constexpr (PRIOR) {
-        kpx[t] = px[s0 + t];
-        kpy[t] = py[s0 + t];
-        klvl[t] = level[s0 + t];
-      }
-    }
-    __syncthreads();
-
-    const int j_end = min((warp + 1) * KPW, n);
-    for (int j = warp * KPW; j < j_end; ++j) {
-      const float4* krow = reinterpret_cast<const float4*>(ks[j]);
-      float s[QPT];
-#pragma unroll
-      for (int i = 0; i < QPT; ++i) s[i] = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kk = krow[d4];
-#pragma unroll
-        for (int i = 0; i < QPT; ++i) {
-          s[i] = fmaf(qr[i][4 * d4 + 0], kk.x, s[i]);
-          s[i] = fmaf(qr[i][4 * d4 + 1], kk.y, s[i]);
-          s[i] = fmaf(qr[i][4 * d4 + 2], kk.z, s[i]);
-          s[i] = fmaf(qr[i][4 * d4 + 3], kk.w, s[i]);
-        }
-      }
-      if constexpr (PRIOR) {
-        const int l4 = klvl[j] * 4;
-        const float pxj = kpx[j];
-        const float pyj = kpy[j];
-#pragma unroll
-        for (int i = 0; i < QPT; ++i) {
-          const int qq = lane + 32 * i;
-          const float dx = (pxj - box[l4 + 0][qq]) * box[l4 + 2][qq];
-          const float dy = (pyj - box[l4 + 1][qq]) * box[l4 + 3][qq];
-          s[i] -= half_gamma * (dx * dx + dy * dy);
-        }
-      }
-      const float bias = kbias[j];
-      const float4* vrow = reinterpret_cast<const float4*>(vs[j]);
-      int gk = -1;
-      if constexpr (MASK) gk = kgrp[j];
-#pragma unroll
-      for (int i = 0; i < QPT; ++i) {
-        float si = s[i] + bias;
-        if (MASK && gk >= 0 && gk != qgrp[i]) si = -INFINITY;  // exp gives 0
-        if (si > run_max[i]) {  // new running max: rescale what was summed
-          const float a = __expf(run_max[i] - si);
-          run_sum[i] *= a;
-#pragma unroll
-          for (int d = 0; d < D; ++d) acc[i][d] *= a;
-          run_max[i] = si;
-        }
-        const float p = __expf(si - run_max[i]);
-        run_sum[i] += p;
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = vrow[d4];
-          acc[i][4 * d4 + 0] = fmaf(p, vv.x, acc[i][4 * d4 + 0]);
-          acc[i][4 * d4 + 1] = fmaf(p, vv.y, acc[i][4 * d4 + 1]);
-          acc[i][4 * d4 + 2] = fmaf(p, vv.z, acc[i][4 * d4 + 2]);
-          acc[i][4 * d4 + 3] = fmaf(p, vv.w, acc[i][4 * d4 + 3]);
-        }
-      }
-    }
-  }
-
-  // merge the warps' partial softmaxes, in warp order
-#pragma unroll
-  for (int i = 0; i < QPT; ++i) {
-    part_max[warp][lane + 32 * i] = run_max[i];
-    part_sum[warp][lane + 32 * i] = run_sum[i];
-  }
-  __syncthreads();
-  float factor[QPT];
-#pragma unroll
-  for (int i = 0; i < QPT; ++i) {
-    const int qq = lane + 32 * i;
-    float mall = part_max[0][qq];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) mall = fmaxf(mall, part_max[w][qq]);
-    float lall = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) lall += part_sum[w][qq] * __expf(part_max[w][qq] - mall);
-    factor[i] = __expf(run_max[i] - mall) / lall;
-  }
-  for (int w = 0; w < WARPS; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int i = 0; i < QPT; ++i) {
-        const int qq = lane + 32 * i;
-#pragma unroll
-        for (int d = 0; d < D; ++d)
-          out_tile[qq][d] = (w == 0 ? 0.f : out_tile[qq][d]) + acc[i][d] * factor[i];
-      }
-    }
-    __syncthreads();
-  }
-  float* og = out + b * lay.out.b + m * lay.out.m;
-  const int rows = min(BQ, Q - q0);
-  for (int t = tid; t < rows * D; t += THREADS)
-    og[(q0 + t / D) * lay.out.r + t % D] = out_tile[t / D][t % D];
-}
-
-}  // namespace f32
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-namespace tc {
-
-// 8 warps x 16 rows share each staged K/V tile; two such blocks of at most
-// 128 registers a thread fill an SM. Measured on the H100 against 4 warps
-// x 64 queries and against 3- and 4-stage rings: 5% faster at S = 2720,
-// the same at S = 900.
+// 8 warps x 16 rows share each staged K/V tile. Measured on the H100
+// (bf16) against 4 warps x 64 queries and against 3- and 4-stage rings:
+// 5% faster at S = 2720, the same at S = 900.
 constexpr int WARPS = 8;
 constexpr int BQ = 16 * WARPS;       // queries per block: 16 rows per warp
 constexpr int THREADS = WARPS * 32;
-constexpr int MIN_BLOCKS = 2;        // blocks per SM the registers must allow
 constexpr int BK = 64;               // keys per ring stage and softmax step
 constexpr int STAGES = 2;            // cp.async ring depth
 constexpr int NT = BK / 8;           // n-tiles of 8 keys in the score fragment
-constexpr int KROW = D + 8;          // shared row of 80 bytes: the 8 rows an
-                                     // ldmatrix phase reads hit 8 distinct
-                                     // 16-byte bank groups
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// One ring stage: a tile of K and V rows and the tile's per-key fields,
-// the latter packed by key pair (2i, 2i+1) as one thread reads them.
-struct __align__(16) Stage {
-  __nv_bfloat16 k[BK][KROW];
-  __nv_bfloat16 v[BK][KROW];
-  float4 pxy[BK / 2];  // {px(2i), px(2i+1), py(2i), py(2i+1)}
-  float2 kb[BK / 2];   // key_bias
-  int2 lvl[BK / 2];    // level id
+template <bool B>
+struct Flag {  // a compile-time bool handed to a generic lambda
+  static constexpr bool value = B;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -355,6 +180,273 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16-byte chunks of one K or V row, and the chunks each thread copies (its
+// own: the fp32 kernel splits exactly these after they land)
+template <class T>
+constexpr int ROW_CHUNKS = D * (int)sizeof(T) / 16;
+template <class T>
+constexpr int CHUNKS_PER_THREAD = BK * ROW_CHUNKS<T> / THREADS;
+
+// Queue the copies of key tile [s0, s0 + BK) into a stage (K and V rows of
+// element type T, the per-key fields packed by key pair (2i, 2i+1) as one
+// thread reads them, and under the mask the key groups). A whole tile
+// copies unpredicated, from 32-bit offsets off the tile's first row (row
+// offsets within one (batch, head) are 32-bit: the wrapper refuses an
+// operand whose rows span 2^31 elements or more). In the RAGGED last tile
+// keys past S are zero-filled from the tile's first row (their scores are
+// masked, and zero V rows keep 0 * V finite).
+template <bool PRIOR, bool MASK, bool RAGGED, class T, class St>
+__device__ __forceinline__ void load_tile(St& st, int2* grp, const T* kg, const T* vg, int k_r,
+                                          int v_r, const float* kbg, const float* px,
+                                          const float* py, const int* level, const int* group,
+                                          int s0, int S, int tid) {
+  constexpr int CH = ROW_CHUNKS<T>, EL = 16 / (int)sizeof(T);
+  static_assert(BK * CH % THREADS == 0, "whole 16-byte chunks of K and V per thread");
+  const T* kt = kg + s0 * k_r;
+  const T* vt = vg + s0 * v_r;
+#pragma unroll
+  for (int n = 0; n < CHUNKS_PER_THREAD<T>; ++n) {
+    const unsigned c = tid + n * THREADS;
+    const int j = c / CH, ch = c % CH;
+    const bool ok = !RAGGED || s0 + j < S;
+    const int r = ok ? j : 0;
+    cp_async16(&st.k[j][ch * EL], kt + (r * k_r + ch * EL), ok);
+    cp_async16(&st.v[j][ch * EL], vt + (r * v_r + ch * EL), ok);
+  }
+  if (tid < BK) {  // per-key fields: 4-byte copies (key_bias rows are not 16-byte aligned)
+    const int j = tid;
+    const bool ok = !RAGGED || s0 + j < S;
+    const int s = ok ? s0 + j : s0;
+    cp_async4(reinterpret_cast<float*>(st.kb) + j, kbg + s, ok);
+    if constexpr (MASK) cp_async4(reinterpret_cast<int*>(grp) + j, group + s, ok);
+    if constexpr (PRIOR) {
+      float* pxy = reinterpret_cast<float*>(st.pxy) + (j >> 1) * 4 + (j & 1);
+      cp_async4(pxy, px + s, ok);
+      cp_async4(pxy + 2, py + s, ok);
+      cp_async4(reinterpret_cast<int*>(st.lvl) + j, level + s, ok);
+    }
+  }
+}
+
+// The logits of one tile in natural units, as dense_reference forms them:
+// s * scale + key_bias - gamma/2 * d2. d2's two squares come from
+// per-(query, level) constants, ax = sqrt(|gamma/2|) * ihw (ay the same
+// with ihh), and are subtracted by two FMAs (added where gamma < 0: NEG).
+// The bf16 stage holds c = {ax, ax*cx, ay, ay*cy} and forms each offset
+// as one FMA, px*ax - ax*cx; the fp32 stage (St::EXACT_PRIOR) holds c =
+// {ax, cx, ay, cy} and forms (px - cx)*ax, as dense_reference does: the
+// FMA's rounded ax*cx (ax up to about 30) costs some 1e-6 of an offset,
+// which fp32's 1e-4 tolerance on the output cannot spare. ONE_LEVEL: every key of the tile lies in one level, whose
+// constants the caller holds in registers (ca, cb for the rows r0, r0 + 8);
+// otherwise each key looks up its own level's. sc is the m16n8 score
+// fragment of both kernels: lane (g, tq) holds keys 2i, 2i+1 (i = j*4 +
+// tq) of rows r0 = g and r0 + 8.
+template <bool PRIOR, bool RAGGED, bool ONE_LEVEL, bool NEG, class St>
+__device__ __forceinline__ void tile_logits(float (&sc)[NT][4], const St& st, const float4* box,
+                                            float4 ca, float4 cb, int r0, int tq, int s0, int S,
+                                            float scale) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int i = j * 4 + tq;  // this thread's key pair (2i, 2i+1) in the tile
+    const float2 kb = st.kb[i];
+    float4 pp = make_float4(0.f, 0.f, 0.f, 0.f);
+    int2 lv = make_int2(0, 0);
+    if constexpr (PRIOR) {
+      pp = st.pxy[i];
+      if constexpr (!ONE_LEVEL) lv = st.lvl[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hi = e & 1;    // key 2i + hi
+      const int row = e >> 1;  // row r0 + 8 * row
+      float t = fmaf(sc[j][e], scale, hi ? kb.y : kb.x);
+      if constexpr (PRIOR) {
+        float4 c = row ? cb : ca;
+        if constexpr (!ONE_LEVEL) c = box[(hi ? lv.y : lv.x) * BQ + r0 + 8 * row];
+        const float pxk = hi ? pp.y : pp.x, pyk = hi ? pp.w : pp.z;
+        const float u = St::EXACT_PRIOR ? (pxk - c.y) * c.x : fmaf(pxk, c.x, -c.y);
+        const float w = St::EXACT_PRIOR ? (pyk - c.w) * c.z : fmaf(pyk, c.z, -c.w);
+        t = fmaf(NEG ? u : -u, u, t);
+        t = fmaf(NEG ? w : -w, w, t);
+      }
+      if (RAGGED && s0 + 2 * i + hi >= S) t = -INFINITY;
+      sc[j][e] = t;
+    }
+  }
+}
+
+// The tile's raw products q.k in sc become unnormalized probabilities:
+// logits, the CDN mask, the row maxima (a tree over this lane's 16 scores
+// of each row, then over the quad that shares the row) and one rescale
+// factor per row (alpha) for what was summed before.
+template <bool PRIOR, bool RAGGED, bool NEG, bool MASK, class St>
+__device__ __forceinline__ void tile_softmax(float (&sc)[NT][4], float (&alpha)[2], const St& st,
+                                             const float4* box, const int2* grp, int ga, int gb,
+                                             float (&mrow)[2], float (&mlog)[2], int lane, int r0,
+                                             int s0, int S, float scale) {
+  const int tq = lane & 3;
+  const float4 none = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (PRIOR) {
+    // the warp checks the tile's 64 levels (two per lane) against its first
+    const int ref = st.lvl[0].x;
+    const int2 lv = st.lvl[lane];
+    const int k0 = s0 + 2 * lane;
+    const bool same = (lv.x == ref || (RAGGED && k0 >= S)) &&
+                      (lv.y == ref || (RAGGED && k0 + 1 >= S));
+    if (__all_sync(FULL, same))
+      tile_logits<PRIOR, RAGGED, true, NEG>(sc, st, box, box[ref * BQ + r0],
+                                            box[ref * BQ + r0 + 8], r0, tq, s0, S, scale);
+    else
+      tile_logits<PRIOR, RAGGED, false, NEG>(sc, st, box, none, none, r0, tq, s0, S, scale);
+  } else {
+    tile_logits<PRIOR, RAGGED, true, NEG>(sc, st, box, none, none, r0, tq, s0, S, scale);
+  }
+  if constexpr (MASK) {
+    // blocked where the key's group is >= 0 and not the row's (ga for row
+    // r0, gb for r0 + 8): -inf, whose exponent below is 0
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int2 gk = grp[j * 4 + tq];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int g = (e & 1) ? gk.y : gk.x;
+        if (g >= 0 && g != ((e >> 1) ? gb : ga)) sc[j][e] = -INFINITY;
+      }
+    }
+  }
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    float a[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) a[j] = fmaxf(sc[j][2 * row], sc[j][2 * row + 1]);
+#pragma unroll
+    for (int w = NT / 2; w >= 1; w /= 2)
+#pragma unroll
+      for (int j = 0; j < w; ++j) a[j] = fmaxf(a[j], a[j + w]);
+    float mx = fmaxf(a[0], __shfl_xor_sync(FULL, a[0], 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    const float mnew = fmaxf(mrow[row], mx);
+    const float mlnew = mnew * LOG2E;
+    alpha[row] = ex2(mlog[row] - mlnew);
+    mrow[row] = mnew;
+    mlog[row] = mlnew;
+  }
+  // unnormalized probabilities 2^(t*log2e - m*log2e); every exponent of a
+  // row is taken against the same stored mlog, so the row stays consistent
+  // even where m*log2e rounds (a row whose keys all carry -1e9)
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = ex2(fmaf(sc[j][e], LOG2E, -mlog[e >> 1]));
+}
+
+// Stage the prior's per-(query, level) constants of the block's queries
+// in the stage type's form (see tile_logits); returns whether gamma < 0.
+template <class St>
+__device__ __forceinline__ bool stage_box(float4* box, const float* cx, const float* cy,
+                                          const float* ihw, const float* ihh,
+                                          const float* gamma, int b, int m, int q0, int Q, int L,
+                                          int tid) {
+  const float hg = 0.5f * gamma[m];
+  const float root = sqrtf(fabsf(hg));
+  for (int t = tid; t < L * BQ; t += THREADS) {
+    const int l = t / BQ, r = t % BQ, qi = q0 + r;
+    float4 c = make_float4(0.f, 0.f, 0.f, 0.f);  // queries past Q: no prior
+    if (qi < Q) {
+      const size_t o = ((size_t)b * Q + qi) * L + l;
+      const float ax = root * ihw[o], ay = root * ihh[o];
+      c = St::EXACT_PRIOR ? make_float4(ax, cx[o], ay, cy[o])
+                          : make_float4(ax, ax * cx[o], ay, ay * cy[o]);
+    }
+    box[l * BQ + r] = c;
+  }
+  return hg < 0.f;
+}
+
+// One warp's walk over the key tiles of a block: the ring (tile it lands
+// while tile it+1 loads), the mask's choice per tile, and the call
+// step(st, grp, s0, ragged, neg, masked) with the last three as Flag<>s.
+// prepare(st) runs on each landed stage before the block's barrier.
+// load(stage, t) queues tile t, if there is one; the first STAGES - 1
+// tiles were queued by the caller.
+template <bool MASK, class St, class Load, class Prepare, class Step>
+__device__ __forceinline__ void key_loop(St* ring, const int2* grps, int ntiles, int S, bool live,
+                                         bool neg, int ga, int gb, int lane, Load load,
+                                         Prepare prepare, Step step) {
+  int ld = STAGES - 1;  // the stage the next tile loads into
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<STAGES - 2>();  // tile `it` has landed (this thread's copies)
+    prepare(ring[it % STAGES]);
+    __syncthreads();              // ... everyone's, and tile it-1 is consumed
+    load(ld, it + STAGES - 1);
+    cp_async_commit();
+    ld = ld + 1 == STAGES ? 0 : ld + 1;
+    if (!live) continue;
+    const St& st = ring[it % STAGES];
+    const int2* grp = grps + (it % STAGES) * (BK / 2);
+    const int s0 = it * BK;
+    const bool ragged = s0 + BK > S;
+    if constexpr (MASK) {
+      // the warp reads the tile's 64 key groups (two per lane). All -1 (the
+      // matching queries' keys), or all the one group every row has: nothing
+      // is blocked. All one group that none of the rows has: the tile adds
+      // nothing, skip it. Otherwise check every score.
+      bool masked = false;
+      const int2 gk = grp[lane];
+      if (!__all_sync(FULL, gk.x < 0 && gk.y < 0)) {
+        const int kmin = __reduce_min_sync(FULL, min(gk.x, gk.y));
+        const int kmax = __reduce_max_sync(FULL, max(gk.x, gk.y));
+        if (!ragged && kmin == kmax) {
+          if (__all_sync(FULL, ga != kmin && gb != kmin)) continue;
+          masked = !__all_sync(FULL, ga == kmin && gb == kmin);
+        } else {
+          masked = true;
+        }
+      }
+      if (masked) {  // every key's group checked, ragged or not
+        step(st, grp, s0, Flag<true>{}, Flag<false>{}, Flag<true>{});
+        continue;
+      }
+    }
+    if (!ragged && !neg)
+      step(st, grp, s0, Flag<false>{}, Flag<false>{}, Flag<false>{});
+    else if (!ragged)
+      step(st, grp, s0, Flag<false>{}, Flag<true>{}, Flag<false>{});
+    else if (!neg)
+      step(st, grp, s0, Flag<true>{}, Flag<false>{}, Flag<false>{});
+    else
+      step(st, grp, s0, Flag<true>{}, Flag<true>{}, Flag<false>{});
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, mma.sync bf16
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int MIN_BLOCKS = 2;  // two blocks of at most 128 registers a thread fill an SM
+constexpr int KROW = D + 8;  // shared row of 80 bytes: the 8 rows an
+                             // ldmatrix phase reads hit 8 distinct
+                             // 16-byte bank groups
+
+// One ring stage: a tile of K and V rows and the tile's per-key fields,
+// the latter packed by key pair (2i, 2i+1) as one thread reads them.
+struct __align__(16) Stage {
+  __nv_bfloat16 k[BK][KROW];
+  __nv_bfloat16 v[BK][KROW];
+  float4 pxy[BK / 2];  // {px(2i), px(2i+1), py(2i), py(2i+1)}
+  float2 kb[BK / 2];   // key_bias
+  int2 lvl[BK / 2];    // level id
+  static constexpr bool EXACT_PRIOR = false;
+};
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -376,94 +468,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; ex2(-inf) = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Queue the copies of key tile [s0, s0 + BK) into a stage. A whole tile
-// copies unpredicated, from 32-bit offsets off the tile's first row (row
-// offsets within one (batch, head) are 32-bit: the wrapper refuses an
-// operand whose rows span 2^31 elements or more). In the RAGGED last tile
-// keys past S are zero-filled from the tile's first row (their scores are
-// masked, and zero V rows keep 0 * V finite).
-static_assert(BK * 4 % THREADS == 0, "whole 16-byte chunks of K and V per thread");
-template <bool PRIOR, bool MASK, bool RAGGED>
-__device__ __forceinline__ void load_tile(Stage& st, int2* grp, const __nv_bfloat16* kg,
-                                          const __nv_bfloat16* vg, int k_r, int v_r,
-                                          const float* kbg, const float* px, const float* py,
-                                          const int* level, const int* group, int s0, int S,
-                                          int tid) {
-  const __nv_bfloat16* kt = kg + s0 * k_r;
-  const __nv_bfloat16* vt = vg + s0 * v_r;
-#pragma unroll
-  for (int n = 0; n < BK * 4 / THREADS; ++n) {  // 64 rows x 4 chunks of 16 bytes
-    const int c = tid + n * THREADS;
-    const int j = c >> 2, ch = c & 3;
-    const bool ok = !RAGGED || s0 + j < S;
-    const int r = ok ? j : 0;
-    cp_async16(&st.k[j][ch * 8], kt + (r * k_r + ch * 8), ok);
-    cp_async16(&st.v[j][ch * 8], vt + (r * v_r + ch * 8), ok);
-  }
-  if (tid < BK) {  // per-key fields: 4-byte copies (key_bias rows are not 16-byte aligned)
-    const int j = tid;
-    const bool ok = !RAGGED || s0 + j < S;
-    const int s = ok ? s0 + j : s0;
-    cp_async4(reinterpret_cast<float*>(st.kb) + j, kbg + s, ok);
-    if constexpr (MASK) cp_async4(reinterpret_cast<int*>(grp) + j, group + s, ok);
-    if constexpr (PRIOR) {
-      float* pxy = reinterpret_cast<float*>(st.pxy) + (j >> 1) * 4 + (j & 1);
-      cp_async4(pxy, px + s, ok);
-      cp_async4(pxy + 2, py + s, ok);
-      cp_async4(reinterpret_cast<int*>(st.lvl) + j, level + s, ok);
-    }
-  }
-}
-
-// The logits of one tile in natural units, as dense_reference forms them:
-// s * scale + key_bias - gamma/2 * d2. d2's two squares come from
-// per-(query, level) constants c = {ax, ax*cx, ay, ay*cy}, ax =
-// sqrt(|gamma/2|) * ihw, and are subtracted by two FMAs (added where gamma
-// < 0: NEG). ONE_LEVEL: every key of the tile lies in one level, whose
-// constants the caller holds in registers (ca, cb for the rows r0, r0 + 8);
-// otherwise each key looks up its own level's.
-template <bool PRIOR, bool RAGGED, bool ONE_LEVEL, bool NEG>
-__device__ __forceinline__ void tile_logits(float (&sc)[NT][4], const Stage& st,
-                                            const float4* box, float4 ca, float4 cb, int r0,
-                                            int tq, int s0, int S, float scale) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int i = j * 4 + tq;  // this thread's key pair (2i, 2i+1) in the tile
-    const float2 kb = st.kb[i];
-    float4 pp = make_float4(0.f, 0.f, 0.f, 0.f);
-    int2 lv = make_int2(0, 0);
-    if constexpr (PRIOR) {
-      pp = st.pxy[i];
-      if constexpr (!ONE_LEVEL) lv = st.lvl[i];
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int hi = e & 1;    // key 2i + hi
-      const int row = e >> 1;  // row r0 + 8 * row
-      float t = fmaf(sc[j][e], scale, hi ? kb.y : kb.x);
-      if constexpr (PRIOR) {
-        float4 c = row ? cb : ca;
-        if constexpr (!ONE_LEVEL) c = box[(hi ? lv.y : lv.x) * BQ + r0 + 8 * row];
-        const float u = fmaf(hi ? pp.y : pp.x, c.x, -c.y);
-        const float w = fmaf(hi ? pp.w : pp.z, c.z, -c.w);
-        t = fmaf(NEG ? u : -u, u, t);
-        t = fmaf(NEG ? w : -w, w, t);
-      }
-      if (RAGGED && s0 + 2 * i + hi >= S) t = -INFINITY;
-      sc[j][e] = t;
-    }
-  }
 }
 
 // One 64-key tile (keys s0..) for this warp's 16 rows: S = Q K^T, logits,
@@ -474,7 +481,6 @@ __device__ __forceinline__ void tile_step(const Stage& st, const float4* box, co
                                           int ga, int gb, const uint32_t (&qf)[2][4],
                                           float (&o)[5][4], float (&mrow)[2], float (&mlog)[2],
                                           int lane, int r0, int s0, int S, float scale) {
-  const int tq = lane & 3;
   float sc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -484,64 +490,9 @@ __device__ __forceinline__ void tile_step(const Stage& st, const float4* box, co
     mma_bf16(sc[j], qf[0], kf[0], kf[1]);
     mma_bf16(sc[j], qf[1], kf[2], kf[3]);
   }
-
-  const float4 none = make_float4(0.f, 0.f, 0.f, 0.f);
-  if constexpr (PRIOR) {
-    // the warp checks the tile's 64 levels (two per lane) against its first
-    const int ref = st.lvl[0].x;
-    const int2 lv = st.lvl[lane];
-    const int k0 = s0 + 2 * lane;
-    const bool same = (lv.x == ref || (RAGGED && k0 >= S)) &&
-                      (lv.y == ref || (RAGGED && k0 + 1 >= S));
-    if (__all_sync(0xffffffffu, same))
-      tile_logits<PRIOR, RAGGED, true, NEG>(sc, st, box, box[ref * BQ + r0],
-                                            box[ref * BQ + r0 + 8], r0, tq, s0, S, scale);
-    else
-      tile_logits<PRIOR, RAGGED, false, NEG>(sc, st, box, none, none, r0, tq, s0, S, scale);
-  } else {
-    tile_logits<PRIOR, RAGGED, true, NEG>(sc, st, box, none, none, r0, tq, s0, S, scale);
-  }
-  if constexpr (MASK) {
-    // blocked where the key's group is >= 0 and not the row's (ga for row
-    // r0, gb for r0 + 8): -inf, whose exponent below is 0
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int2 gk = grp[j * 4 + tq];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int g = (e & 1) ? gk.y : gk.x;
-        if (g >= 0 && g != ((e >> 1) ? gb : ga)) sc[j][e] = -INFINITY;
-      }
-    }
-  }
-
-  // row maxima: a tree over this lane's 16 scores of each row, then over
-  // the quad that shares the row; one rescale per tile
   float alpha[2];
-#pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    float a[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) a[j] = fmaxf(sc[j][2 * row], sc[j][2 * row + 1]);
-#pragma unroll
-    for (int w = NT / 2; w >= 1; w /= 2)
-#pragma unroll
-      for (int j = 0; j < w; ++j) a[j] = fmaxf(a[j], a[j + w]);
-    float mx = fmaxf(a[0], __shfl_xor_sync(0xffffffffu, a[0], 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mnew = fmaxf(mrow[row], mx);
-    const float mlnew = mnew * LOG2E;
-    alpha[row] = ex2(mlog[row] - mlnew);
-    mrow[row] = mnew;
-    mlog[row] = mlnew;
-  }
-  // unnormalized probabilities 2^(t*log2e - m*log2e); every exponent of a
-  // row is taken against the same stored mlog, so the row stays consistent
-  // even where m*log2e rounds (a row whose keys all carry -1e9)
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sc[j][e] = ex2(fmaf(sc[j][e], LOG2E, -mlog[e >> 1]));
+  tile_softmax<PRIOR, RAGGED, NEG, MASK>(sc, alpha, st, box, grp, ga, gb, mrow, mlog, lane, r0,
+                                         s0, S, scale);
 #pragma unroll
   for (int n = 0; n < 5; ++n) {
     o[n][0] *= alpha[0];
@@ -622,21 +573,7 @@ box_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 
   bool neg = false;  // gamma < 0: the prior raises the logits
-  if constexpr (PRIOR) {
-    const float hg = 0.5f * gamma[m];
-    const float root = sqrtf(fabsf(hg));
-    neg = hg < 0.f;
-    for (int t = tid; t < L * BQ; t += THREADS) {
-      const int l = t / BQ, r = t % BQ, qi = q0 + r;
-      float4 c = make_float4(0.f, 0.f, 0.f, 0.f);  // queries past Q: no prior
-      if (qi < Q) {
-        const size_t o = ((size_t)b * Q + qi) * L + l;
-        const float ax = root * ihw[o], ay = root * ihh[o];
-        c = make_float4(ax, ax * cx[o], ay, ay * cy[o]);
-      }
-      box[l * BQ + r] = c;
-    }
-  }
+  if constexpr (PRIOR) neg = stage_box<Stage>(box, cx, cy, ihw, ihh, gamma, b, m, q0, Q, L, tid);
 
   // Q's A fragments (two k-steps of 16 dims), rows past Q zero
   const int r0 = warp * 16 + g;
@@ -673,64 +610,19 @@ box_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     if (qa + 8 < Q) gb = group[qa + 8];
   }
 
-  int ld = STAGES - 1;  // the stage the next tile loads into
-  for (int it = 0; it < ntiles; ++it) {
-    cp_async_wait<STAGES - 2>();  // tile `it` has landed (this thread's copies)
-    __syncthreads();              // ... everyone's, and tile it-1 is consumed
-    load(ld, it + STAGES - 1);
-    cp_async_commit();
-    ld = ld + 1 == STAGES ? 0 : ld + 1;
-    if (!live) continue;
-    const Stage& st = ring[it % STAGES];
-    const int2* grp = grps + (it % STAGES) * (BK / 2);
-    const int s0 = it * BK;
-    const bool ragged = s0 + BK > S;
-    bool masked = false;
-    if constexpr (MASK) {
-      // the warp reads the tile's 64 key groups (two per lane). All -1 (the
-      // matching queries' keys), or all the one group every row has: nothing
-      // is blocked. All one group that none of the rows has: the tile adds
-      // nothing, skip it. Otherwise check every score.
-      const int2 gk = grp[lane];
-      if (!__all_sync(0xffffffffu, gk.x < 0 && gk.y < 0)) {
-        const int kmin = __reduce_min_sync(0xffffffffu, min(gk.x, gk.y));
-        const int kmax = __reduce_max_sync(0xffffffffu, max(gk.x, gk.y));
-        if (!ragged && kmin == kmax) {
-          if (__all_sync(0xffffffffu, ga != kmin && gb != kmin)) continue;
-          masked = !__all_sync(0xffffffffu, ga == kmin && gb == kmin);
-        } else {
-          masked = true;
-        }
-      }
-    }
-    if constexpr (MASK) {
-      if (masked) {  // every key's group checked, ragged or not
-        tile_step<PRIOR, true, false, true>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0,
-                                            s0, S, scale);
-        continue;
-      }
-    }
-    if (!ragged && !neg)
-      tile_step<PRIOR, false, false, false>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0,
-                                            s0, S, scale);
-    else if (!ragged)
-      tile_step<PRIOR, false, true, false>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0, s0,
-                                           S, scale);
-    else if (!neg)
-      tile_step<PRIOR, true, false, false>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0, s0,
-                                           S, scale);
-    else
-      tile_step<PRIOR, true, true, false>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane, r0, s0,
-                                          S, scale);
-  }
-  cp_async_wait<0>();
+  key_loop<MASK>(ring, grps, ntiles, S, live, neg, ga, gb, lane, load, [](Stage&) {},
+                 [&](const Stage& st, const int2* grp, int s0, auto ragged, auto negf, auto mask) {
+                   tile_step<PRIOR, decltype(ragged)::value, decltype(negf)::value,
+                             decltype(mask)::value>(st, box, grp, ga, gb, qf, o, mrow, mlog, lane,
+                                                    r0, s0, S, scale);
+                 });
   if (!live) return;
 
   float* og = out + b * lay.out.b + m * lay.out.m;
 #pragma unroll
   for (int row = 0; row < 2; ++row) {
     // the row sum sits in column 0 of the ones tile: the quad's lane tq = 0
-    const float inv = 1.f / __shfl_sync(0xffffffffu, o[4][2 * row], lane & ~3);
+    const float inv = 1.f / __shfl_sync(FULL, o[4][2 * row], lane & ~3);
     const int qi = q0 + r0 + 8 * row;
     if (qi < Q) {
 #pragma unroll
@@ -743,11 +635,291 @@ box_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 }  // namespace tc
 
-// dynamic shared memory of the bf16 kernel: the ring, then (prior) L
-// levels of per-query box constants or (mask) each stage's key groups
-size_t bf16_smem(bool prior, int L, bool mask) {
-  return tc::STAGES * sizeof(tc::Stage) + (prior ? (size_t)L * tc::BQ * sizeof(float4) : 0) +
-         (mask ? (size_t)tc::STAGES * (tc::BK / 2) * sizeof(int2) : 0);
+// ---------------------------------------------------------------------------
+// fp32: tensor cores, mma.sync tf32 in 3xTF32
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+constexpr int ROW = D + 4;  // shared row of 144 bytes: a quarter warp's
+                            // 16-byte loads (rows g, g + 1 at chunk
+                            // offsets 2t or 9 rows apart) hit 8 distinct
+                            // 16-byte bank groups
+
+// One ring stage: K and V as copied, then split (big in place, small in
+// the second plane), and the tile's per-key fields as the bf16 stage has
+// them.
+struct __align__(16) Stage {
+  float k[BK][ROW];   // K, then its tf32 big part
+  float ks[BK][ROW];  // K's tf32 small part
+  float v[BK][ROW];   // V, then its tf32 big part
+  float vs[BK][ROW];  // V's tf32 small part
+  float4 pxy[BK / 2];
+  float2 kb[BK / 2];
+  int2 lvl[BK / 2];
+  static constexpr bool EXACT_PRIOR = true;
+};
+
+__device__ __forceinline__ uint32_t tf32(float x) {  // round to nearest, ties away
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small up to 2^-22 |x|, both tf32
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void split4(float4& big, float4& small) {
+  uint32_t b, s;
+  split(big.x, b, s), big.x = __uint_as_float(b), small.x = __uint_as_float(s);
+  split(big.y, b, s), big.y = __uint_as_float(b), small.y = __uint_as_float(s);
+  split(big.z, b, s), big.z = __uint_as_float(b), small.z = __uint_as_float(s);
+  split(big.w, b, s), big.w = __uint_as_float(b), small.w = __uint_as_float(s);
+}
+
+// Split the K and V chunks this thread copied into a landed stage (the
+// chunks of load_tile<float>): its own cp.async copies are visible to it
+// once they land, so no barrier comes before; the block's barrier after
+// publishes both planes.
+__device__ __forceinline__ void split_tile(Stage& st, int tid) {
+  constexpr int CH = ROW_CHUNKS<float>;
+#pragma unroll
+  for (int n = 0; n < CHUNKS_PER_THREAD<float>; ++n) {
+    const unsigned c = tid + n * THREADS;
+    const int j = c / CH, d = (c % CH) * 4;
+    float4 kb = *reinterpret_cast<float4*>(&st.k[j][d]), ksm;
+    float4 vb = *reinterpret_cast<float4*>(&st.v[j][d]), vsm;
+    split4(kb, ksm);
+    split4(vb, vsm);
+    *reinterpret_cast<float4*>(&st.k[j][d]) = kb;
+    *reinterpret_cast<float4*>(&st.ks[j][d]) = ksm;
+    *reinterpret_cast<float4*>(&st.v[j][d]) = vb;
+    *reinterpret_cast<float4*>(&st.vs[j][d]) = vsm;
+  }
+}
+
+// c (16x8 fp32) += a (16x8 tf32, row) . b (8x8 tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b in 3xTF32: the small terms first, then big.big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], float b0b, float b1b,
+                                           float b0s, float b1s) {
+  mma_tf32(c, as, __float_as_uint(b0b), __float_as_uint(b1b));
+  mma_tf32(c, ab, __float_as_uint(b0s), __float_as_uint(b1s));
+  mma_tf32(c, ab, __float_as_uint(b0b), __float_as_uint(b1b));
+}
+
+__device__ __forceinline__ float at(const float4& x, int i) {  // i known at compile time
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+// One 64-key tile (keys s0..) for this warp's 16 rows: S = Q K^T, logits,
+// online softmax, O += P V, row sums. In both products a k-step's k index
+// t stands for dims (q.k) or keys (p.v) chosen so that every fragment is
+// two 16-byte loads (see the header): q.k's k-step ks takes dim 8t + 2ks
+// at t and 8t + 2ks + 1 at t + 4; p.v's k-step j takes key 8j + 2t at t
+// and 8j + 2t + 1 at t + 4, the score fragment's own columns; p.v's n-tile
+// n takes dim 4c + n at column c.
+template <bool PRIOR, bool RAGGED, bool NEG, bool MASK>
+__device__ __forceinline__ void tile_step(const Stage& st, const float4* box, const int2* grp,
+                                          int ga, int gb, const uint32_t (&qb)[4][4],
+                                          const uint32_t (&qs)[4][4], float (&o)[4][4],
+                                          float (&lsum)[2], float (&mrow)[2], float (&mlog)[2],
+                                          int lane, int r0, int s0, int S, float scale) {
+  const int g = lane >> 2, tq = lane & 3;
+  float sc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    // key 8j + g, dims 8tq .. 8tq + 7: b0 of k-step ks is dim 8tq + 2ks, b1 the next
+    const float4* kb = reinterpret_cast<const float4*>(&st.k[8 * j + g][8 * tq]);
+    const float4* ks = reinterpret_cast<const float4*>(&st.ks[8 * j + g][8 * tq]);
+    const float4 kb0 = kb[0], kb1 = kb[1], ks0 = ks[0], ks1 = ks[1];
+    mma_3xtf32(sc[j], qb[0], qs[0], kb0.x, kb0.y, ks0.x, ks0.y);
+    mma_3xtf32(sc[j], qb[1], qs[1], kb0.z, kb0.w, ks0.z, ks0.w);
+    mma_3xtf32(sc[j], qb[2], qs[2], kb1.x, kb1.y, ks1.x, ks1.y);
+    mma_3xtf32(sc[j], qb[3], qs[3], kb1.z, kb1.w, ks1.z, ks1.w);
+  }
+  float alpha[2];
+  tile_softmax<PRIOR, RAGGED, NEG, MASK>(sc, alpha, st, box, grp, ga, gb, mrow, mlog, lane, r0,
+                                         s0, S, scale);
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s += sc[j][2 * row] + sc[j][2 * row + 1];
+    lsum[row] = fmaf(lsum[row], alpha[row], s);
+  }
+  // this tile's P V, k-step j over keys 8j .. 8j + 7: P's A fragment is
+  // the score fragment's n-tile j, {row g key 2t, row g+8 key 2t, row g
+  // key 2t+1, row g+8 key 2t+1}, split here. It starts from zero and joins
+  // O by one fp32 FMA a value (O * alpha + tile): the tensor cores' fp32
+  // sums are not rounded to nearest but drift one way, and a chain over
+  // every key would carry that through hundreds of steps.
+  float pv[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t pb[4], ps[4];
+    split(sc[j][0], pb[0], ps[0]);
+    split(sc[j][2], pb[1], ps[1]);
+    split(sc[j][1], pb[2], ps[2]);
+    split(sc[j][3], pb[3], ps[3]);
+    const int key = 8 * j + 2 * tq;  // b0's key; b1's is the next
+    const float4 v0 = *reinterpret_cast<const float4*>(&st.v[key][4 * g]);
+    const float4 v1 = *reinterpret_cast<const float4*>(&st.v[key + 1][4 * g]);
+    const float4 w0 = *reinterpret_cast<const float4*>(&st.vs[key][4 * g]);
+    const float4 w1 = *reinterpret_cast<const float4*>(&st.vs[key + 1][4 * g]);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      mma_3xtf32(pv[n], pb, ps, at(v0, n), at(v1, n), at(w0, n), at(w1, n));
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], alpha[e >> 1], pv[n][e]);
+}
+
+// One block per (128-query tile, head m, batch b), as the bf16 kernel, but
+// one block an SM: at two, 128 registers a thread spill, and one block of
+// up to 207 spills nothing, measured the same at Q = 900 and faster at
+// Q = 1028, whose 576 blocks end in a smaller last wave (on an H100 80GB
+// HBM3 at 700 W). Splitting K and V in registers instead of in shared
+// memory measured slower.
+template <bool PRIOR, bool MASK>
+__global__ void __launch_bounds__(THREADS, 1)
+box_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ key_bias,
+                    const float* __restrict__ cx, const float* __restrict__ cy,
+                    const float* __restrict__ ihw, const float* __restrict__ ihh,
+                    const int* __restrict__ level, const float* __restrict__ px,
+                    const float* __restrict__ py, const float* __restrict__ gamma,
+                    const int* __restrict__ group, float* __restrict__ out, Layout lay, int Q,
+                    int S, int L, float scale) {
+  static_assert(!(PRIOR && MASK), "the group mask is the self-attention's, without the prior");
+  extern __shared__ __align__(16) unsigned char smem[];
+  Stage* ring = reinterpret_cast<Stage*>(smem);
+  float4* box = reinterpret_cast<float4*>(smem + STAGES * sizeof(Stage));
+  int2* grps = reinterpret_cast<int2*>(smem + STAGES * sizeof(Stage));  // [STAGES][BK / 2]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = blockIdx.x * BQ;
+  const int m = blockIdx.y;
+  const int b = blockIdx.z;
+  const float* kg = k + b * lay.k.b + m * lay.k.m;
+  const float* vg = v + b * lay.v.b + m * lay.v.m;
+  const int k_r = (int)lay.k.r, v_r = (int)lay.v.r;
+  const float* kbg = key_bias + (size_t)b * S;
+  const int ntiles = (S + BK - 1) / BK;
+
+  auto load = [&](int stage, int t) {  // tile t into a stage, if there is one
+    if (t >= ntiles) return;
+    int2* grp = grps + stage * (BK / 2);
+    if ((t + 1) * BK <= S)
+      load_tile<PRIOR, MASK, false>(ring[stage], grp, kg, vg, k_r, v_r, kbg, px, py, level,
+                                    group, t * BK, S, tid);
+    else
+      load_tile<PRIOR, MASK, true>(ring[stage], grp, kg, vg, k_r, v_r, kbg, px, py, level,
+                                   group, t * BK, S, tid);
+  };
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    load(t, t);
+    cp_async_commit();
+  }
+
+  bool neg = false;  // gamma < 0: the prior raises the logits
+  if constexpr (PRIOR) neg = stage_box<Stage>(box, cx, cy, ihw, ihh, gamma, b, m, q0, Q, L, tid);
+
+  // Q's A fragments, split once: rows r0 and r0 + 8, dims 8tq .. 8tq + 7
+  // (k-step ks: dim 8tq + 2ks at k index tq, the next at tq + 4); rows
+  // past Q zero
+  const int r0 = warp * 16 + g;
+  uint32_t qb[4][4], qs[4][4];
+  {
+    const float* qg = q + b * lay.q.b + m * lay.q.m;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // row r0 + 8h: a1 and a3 hold the second row
+      const int qi = q0 + r0 + 8 * h;
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = 0.f;
+      if (qi < Q) {
+        const float4* row = reinterpret_cast<const float4*>(qg + qi * lay.q.r + 8 * tq);
+        const float4 x0 = row[0], x1 = row[1];
+        x[0] = x0.x, x[1] = x0.y, x[2] = x0.z, x[3] = x0.w;
+        x[4] = x1.x, x[5] = x1.y, x[6] = x1.z, x[7] = x1.w;
+      }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        split(x[2 * ks], qb[ks][h], qs[ks][h]);
+        split(x[2 * ks + 1], qb[ks][2 + h], qs[ks][2 + h]);
+      }
+    }
+  }
+
+  float o[4][4];  // O's four n-tiles (n-tile n, column c: dim 4c + n)
+#pragma unroll
+  for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float lsum[2] = {0.f, 0.f};  // this lane's share of the row sums
+  float mrow[2] = {-1e30f, -1e30f};
+  float mlog[2] = {-1e30f * LOG2E, -1e30f * LOG2E};
+  const bool live = q0 + warp * 16 < Q;
+  int ga = -2, gb = -2;
+  if constexpr (MASK) {
+    const int qa = q0 + r0;
+    if (qa < Q) ga = group[qa];
+    if (qa + 8 < Q) gb = group[qa + 8];
+  }
+
+  key_loop<MASK>(ring, grps, ntiles, S, live, neg, ga, gb, lane, load,
+                 [&](Stage& st) { split_tile(st, tid); },
+                 [&](const Stage& st, const int2* grp, int s0, auto ragged, auto negf, auto mask) {
+                   tile_step<PRIOR, decltype(ragged)::value, decltype(negf)::value,
+                             decltype(mask)::value>(st, box, grp, ga, gb, qb, qs, o, lsum, mrow,
+                                                    mlog, lane, r0, s0, S, scale);
+                 });
+  if (!live) return;
+
+  float* og = out + b * lay.out.b + m * lay.out.m;
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    float s = lsum[row] + __shfl_xor_sync(FULL, lsum[row], 1);
+    s += __shfl_xor_sync(FULL, s, 2);
+    const float inv = 1.f / s;
+    const int qi = q0 + r0 + 8 * row;
+    if (qi < Q) {  // dims 8tq .. 8tq + 3 from columns 2tq, the next four from 2tq + 1
+      float4* dst = reinterpret_cast<float4*>(og + qi * lay.out.r + 8 * tq);
+      dst[0] = make_float4(o[0][2 * row] * inv, o[1][2 * row] * inv, o[2][2 * row] * inv,
+                           o[3][2 * row] * inv);
+      dst[1] = make_float4(o[0][2 * row + 1] * inv, o[1][2 * row + 1] * inv,
+                           o[2][2 * row + 1] * inv, o[3][2 * row + 1] * inv);
+    }
+  }
+}
+
+}  // namespace f32
+
+// dynamic shared memory of a block: the ring, then (prior) L levels of
+// per-query box constants or (mask) each stage's key groups
+size_t smem_bytes(bool bf16, bool prior, int L, bool mask) {
+  return STAGES * (bf16 ? sizeof(tc::Stage) : sizeof(f32::Stage)) +
+         (prior ? (size_t)L * BQ * sizeof(float4) : 0) +
+         (mask ? (size_t)STAGES * (BK / 2) * sizeof(int2) : 0);
 }
 
 struct Args {
@@ -759,24 +931,32 @@ struct Args {
   float* out;
 };
 
+// allow a kernel the most shared memory any L needs
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, bool bf16, bool prior, bool mask) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(bf16, prior, MAX_L, mask));
+}
+
 template <bool PRIOR, bool MASK>
 cudaError_t launch(const Args& a, bool bf16, const Layout& lay, int B, int M, int Q, int S,
                    int L, cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)D);
+  const dim3 grid((Q + BQ - 1) / BQ, M, B);
+  const size_t smem = smem_bytes(bf16, PRIOR, L, MASK);
   if (bf16) {
-    const dim3 grid((Q + tc::BQ - 1) / tc::BQ, M, B);
-    // allow the most shared memory any L needs, once
-    static const cudaError_t sized = cudaFuncSetAttribute(
-        tc::box_attn_bf16_kernel<PRIOR, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bf16_smem(PRIOR, MAX_L, MASK));
+    static const cudaError_t sized =
+        allow_smem(tc::box_attn_bf16_kernel<PRIOR, MASK>, true, PRIOR, MASK);
     if (sized != cudaSuccess) return sized;
-    tc::box_attn_bf16_kernel<PRIOR, MASK><<<grid, tc::THREADS, bf16_smem(PRIOR, L, MASK), stream>>>(
+    tc::box_attn_bf16_kernel<PRIOR, MASK><<<grid, THREADS, smem, stream>>>(
         (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k, (const __nv_bfloat16*)a.v,
         a.key_bias, a.cx, a.cy, a.ihw, a.ihh, a.level, a.px, a.py, a.gamma, a.group, a.out, lay,
         Q, S, L, scale);
   } else {
-    const dim3 grid((Q + f32::BQ - 1) / f32::BQ, M, B);
-    f32::box_attn_f32_kernel<PRIOR, MASK><<<grid, f32::THREADS, 0, stream>>>(
+    static const cudaError_t sized =
+        allow_smem(f32::box_attn_f32_kernel<PRIOR, MASK>, false, PRIOR, MASK);
+    if (sized != cudaSuccess) return sized;
+    f32::box_attn_f32_kernel<PRIOR, MASK><<<grid, THREADS, smem, stream>>>(
         (const float*)a.q, (const float*)a.k, (const float*)a.v, a.key_bias, a.cx, a.cy, a.ihw,
         a.ihh, a.level, a.px, a.py, a.gamma, a.group, a.out, lay, Q, S, L, scale);
   }
@@ -824,8 +1004,8 @@ extern "C" int dtlr_box_attn_fwd(const void* q, const void* k, const void* v,
 
 extern "C" int dtlr_box_attn_head_dim() { return D; }
 
-// bytes of dynamic shared memory a bf16 block takes (ptxas reports only
-// static shared memory)
-extern "C" int dtlr_box_attn_bf16_smem(int prior, int L, int mask) {
-  return (int)bf16_smem(prior != 0, L, mask != 0);
+// bytes of dynamic shared memory a block takes (ptxas reports only static
+// shared memory)
+extern "C" int dtlr_box_attn_smem(int bf16, int prior, int L, int mask) {
+  return (int)smem_bytes(bf16 != 0, prior != 0, L, mask != 0);
 }

@@ -14,7 +14,9 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -107,3 +109,15 @@ def load(source: str) -> ctypes.CDLL:
     if not os.path.exists(so):
         build([source])
     return ctypes.CDLL(so)
+
+
+def launch_on(device: torch.device, fn: Callable[..., int], *args) -> int:
+    """``fn(*args, stream)``: a kernel's C entry point, called with
+    ``device`` current and the raw handle of its current stream last.
+    ``torch.cuda.device`` is entered only when another device is current;
+    otherwise the launch costs two C calls besides ``fn``."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -7,8 +7,10 @@ Pallas kernels ``_mha_box_kernel`` and, with ``prior=None``,
 ``_mha_kernel``, the latter also under the CDN group mask of a detection
 training step's self-attention, which JAX runs materialized,
 dtlr_tpu/models/layers.py:184-195); on a CPU tensor it runs
-``dense_reference``, the plain PyTorch version of the same math. bf16
-inputs run on the tensor cores, fp32 inputs on the CUDA cores. The kernel reads q, k and v through their
+``dense_reference``, the plain PyTorch version of the same math. Both
+bf16 and fp32 inputs run on the tensor cores, fp32 in 3xTF32 (each
+operand split into two TF32 parts, three products), which keeps fp32's
+accuracy. The kernel reads q, k and v through their
 batch, head and row strides (``kernel_strides``), so the decoder hands it
 its projections without copies. It is compiled with ``nvcc`` for sm_90a
 at first use into ``dtlr_tpu_torch/build/`` and bound with ctypes
@@ -129,7 +131,7 @@ def _check(name, t, shape, dtypes, device, contiguous=True):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -145,18 +147,25 @@ def kernel_strides(name: str, t: torch.Tensor, shape, dtypes, device) -> Tuple[i
     Returns those three element strides; raises ValueError (TypeError for
     the dtype) otherwise."""
     _check(name, t, shape, dtypes, device, contiguous=False)
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name} must be contiguous in its last axis, got stride {t.stride(-1)}")
+    stride = t.stride()
+    if stride[3] != 1:
+        raise ValueError(f"{name} must be contiguous in its last axis, got stride {stride[3]}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary")
     unit = 16 // t.element_size()
     for axis, what in enumerate(("batch", "head", "row")):
-        if t.shape[axis] > 1 and t.stride(axis) % unit:
-            raise ValueError(f"{name}'s {what} stride {t.stride(axis)} is not a multiple "
+        if shape[axis] > 1 and stride[axis] % unit:
+            raise ValueError(f"{name}'s {what} stride {stride[axis]} is not a multiple "
                              f"of {unit} elements")
-    if (t.shape[2] - 1) * t.stride(2) + t.shape[3] >= 2 ** 31:
+    if (shape[2] - 1) * stride[2] + shape[3] >= 2 ** 31:
         raise ValueError(f"{name}'s rows span 2^31 elements or more")
-    return t.stride(0), t.stride(1), t.stride(2)
+    return stride[:3]
+
+
+_IO_TYPES = (torch.float32, torch.bfloat16)
+_F32 = (torch.float32,)
+_I32 = (torch.int32,)
+_STRIDES = ctypes.c_longlong * 12
 
 
 def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
@@ -164,48 +173,49 @@ def _launch(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
             query_group: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Check the CUDA inputs and launch the kernel once. qh/kh/vh may be
     strided views (the decoder's (B, S, M, D) projections transposed);
-    the result is a (B, M, Q, D) view of a (B, Q, M, D) fp32 tensor."""
+    the result is a (B, M, Q, D) view of a (B, Q, M, D) fp32 tensor. The
+    launch enters no device context unless another device is current
+    (``_build.launch_on``): at the self-attention's size the host's work
+    per call is what back-to-back calls wait for."""
     B, M, Q, D = qh.shape
     S = kh.shape[2]
     dev = qh.device
     if D != HEAD_DIM:
         raise ValueError(f"the kernel is compiled for head dim {HEAD_DIM}, got {D}")
-    io_types = (torch.float32, torch.bfloat16)
-    out = torch.empty((B, Q, M, D), dtype=torch.float32, device=dev).transpose(1, 2)
-    strides = (kernel_strides("qh", qh, (B, M, Q, D), io_types, dev)
-               + kernel_strides("kh", kh, (B, M, S, D), (qh.dtype,), dev)
-               + kernel_strides("vh", vh, (B, M, S, D), (qh.dtype,), dev)
-               + kernel_strides("out", out, (B, M, Q, D), (torch.float32,), dev))
-    _check("key_bias", key_bias, (B, S), (torch.float32,), dev)
+    out = qh.new_empty((B, Q, M, D), dtype=torch.float32).transpose(1, 2)
+    q_shape, kv_shape, kv_type = (B, M, Q, D), (B, M, S, D), (qh.dtype,)
+    strides = _STRIDES(*kernel_strides("qh", qh, q_shape, _IO_TYPES, dev),
+                       *kernel_strides("kh", kh, kv_shape, kv_type, dev),
+                       *kernel_strides("vh", vh, kv_shape, kv_type, dev),
+                       *kernel_strides("out", out, q_shape, _F32, dev))
+    _check("key_bias", key_bias, (B, S), _F32, dev)
     if query_group is not None:
         if prior is not None:
             raise ValueError("the kernel takes the group mask without the box prior only")
         if Q != S:
             raise ValueError(f"the group mask is the self-attention's: Q = S, got {Q} and {S}")
-        _check("query_group", query_group, (Q,), (torch.int32,), dev)
-    f32 = (torch.float32,)
+        _check("query_group", query_group, (Q,), _I32, dev)
     if prior is not None:
         L = prior.cx.shape[-1]
         if not 1 <= L <= MAX_LEVELS:
             raise ValueError(f"the kernel takes 1..{MAX_LEVELS} levels, got {L}")
+        per_query = (B, Q, L)
         for name in ("cx", "cy", "ihw", "ihh"):
-            _check(name, getattr(prior, name), (B, Q, L), f32, dev)
-        _check("level", prior.level, (S,), (torch.int32,), dev)
-        _check("px", prior.px, (S,), f32, dev)
-        _check("py", prior.py, (S,), f32, dev)
-        _check("gamma", prior.gamma, (M,), f32, dev)
+            _check(name, getattr(prior, name), per_query, _F32, dev)
+        _check("level", prior.level, (S,), _I32, dev)
+        _check("px", prior.px, (S,), _F32, dev)
+        _check("py", prior.py, (S,), _F32, dev)
+        _check("gamma", prior.gamma, (M,), _F32, dev)
         box_ptrs = [t.data_ptr() for t in prior]
     else:
         L = 1
         box_ptrs = [None] * 8
-    lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.dtlr_box_attn_fwd(
-            qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), key_bias.data_ptr(),
-            *box_ptrs, None if query_group is None else query_group.data_ptr(),
-            out.data_ptr(), B, M, Q, S, D, L,
-            int(qh.dtype == torch.bfloat16), int(prior is not None),
-            (ctypes.c_longlong * 12)(*strides), torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.launch_on(
+        dev, load_library().dtlr_box_attn_fwd,
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), key_bias.data_ptr(),
+        *box_ptrs, None if query_group is None else query_group.data_ptr(),
+        out.data_ptr(), B, M, Q, S, D, L,
+        int(qh.dtype == torch.bfloat16), int(prior is not None), strides)
     if err != 0:
         raise RuntimeError(f"box_attn kernel launch failed with CUDA error {err}")
     name = "mha_box" if prior is not None else "mha" if query_group is None else "mha_masked"
@@ -300,6 +310,6 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.dtlr_box_attn_bf16_smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    lib.dtlr_box_attn_bf16_smem.restype = ctypes.c_int
+    lib.dtlr_box_attn_smem.argtypes = [ctypes.c_int] * 4
+    lib.dtlr_box_attn_smem.restype = ctypes.c_int
     return lib

@@ -34,32 +34,40 @@ def row_gather(val: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     on an index outside [0, S)); CUDA tensors launch the kernel or raise,
     and an index outside [0, S) trips the kernel's device-side assert,
     which the next synchronizing call reports and which leaves the CUDA
-    context unusable, as with ``index_select``."""
-    if val.device.type == "cpu" and idx.device.type == "cpu":
+    context unusable, as with ``index_select``. The kernel sits at the
+    launch floor (csrc/row_gather.cu), so the host's work per call is what
+    a caller waits for, and the launch path is lean: the checks are one
+    expression (``_refuse`` spells out a failure), the device context is
+    entered only if another device is current (``_build.launch_on``), and
+    nothing here waits for the device."""
+    dev = val.device
+    if (dev.type == "cuda" and idx.device == dev and val.dtype is torch.float32
+            and idx.dtype is torch.int32 and val.dim() == 2 and idx.dim() == 1
+            and val.is_contiguous() and idx.is_contiguous()):
+        S, C = val.shape
+        Q = idx.shape[0]
+        out = val.new_empty((Q, C))
+        err = _build.launch_on(dev, load_library().dtlr_row_gather, val.data_ptr(),
+                               idx.data_ptr(), out.data_ptr(), S, C, Q)
+        if err != 0:
+            raise RuntimeError(f"row_gather kernel launch failed with CUDA error {err}")
+        row_gather.launches["row_gather"] += 1
+        return out
+    if dev.type == "cpu" and idx.device.type == "cpu":
         return row_gather_reference(val, idx)
+    _refuse(val, idx)
+
+
+def _refuse(val: torch.Tensor, idx: torch.Tensor) -> None:
+    """Raise ValueError for what ``row_gather`` does not take on the card."""
     if val.device.type != "cuda" or idx.device != val.device:
         raise ValueError(f"row_gather runs on one cuda device, got val on {val.device} "
                          f"and idx on {idx.device}")
     if val.dtype != torch.float32 or val.dim() != 2 or not val.is_contiguous():
         raise ValueError(f"val must be a contiguous (S, C) float32 tensor, got "
                          f"{val.dtype} {tuple(val.shape)}")
-    if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
-        raise ValueError(f"idx must be a contiguous (Q,) int32 tensor, got "
-                         f"{idx.dtype} {tuple(idx.shape)}")
-    S, C = val.shape
-    Q = idx.shape[0]
-    # an index outside [0, S) fails the kernel's device-side assert (as
-    # index_select's does): nothing here waits for the device
-    out = torch.empty((Q, C), dtype=torch.float32, device=val.device)
-    lib = load_library()
-    with torch.cuda.device(val.device):
-        stream = torch.cuda.current_stream(val.device).cuda_stream
-        err = lib.dtlr_row_gather(val.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                  S, C, Q, stream)
-    if err != 0:
-        raise RuntimeError(f"row_gather kernel launch failed with CUDA error {err}")
-    row_gather.launches["row_gather"] += 1
-    return out
+    raise ValueError(f"idx must be a contiguous (Q,) int32 tensor, got "
+                     f"{idx.dtype} {tuple(idx.shape)}")
 
 
 #: launches of the CUDA kernel; the plain version is never counted

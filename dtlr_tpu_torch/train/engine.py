@@ -233,11 +233,16 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate_ctc(self, batches: Iterable, charset: Sequence[str]) -> Dict[str, float]:
-        """Greedy CER/WER (corpus, standardized) and the NMS decode's CER
-        at TH 0.3 / NMS 0.5, with the mean CTC loss, over ``batches``."""
+        """Greedy CER (corpus, standardized) and the NMS decode's CER at TH
+        0.3 / NMS 0.5, with the mean CTC loss, over ``batches``; then the
+        greedy WER, or, for a charset without a space (HWDB, the ciphers:
+        WER is pinned at 1 there), the NMS decode's AR and CR on the
+        labels, as dtlr_tpu/train/engine.py:372-377,483-489 reports."""
         model = self.state.model
         model.eval()
+        spaceless = " " not in charset
         preds, nms_preds, gts, losses = [], [], [], []
+        nms_labels, gt_labels = [], []
         for batch in batches:
             arrays = to_device(batch, self.device)
             out = model(prep_images(arrays["images"], arrays["valid_hw"]), arrays["valid_hw"])
@@ -246,13 +251,21 @@ class Trainer:
             losses.append(float(loss))
             frames = greedy_decode(out["pred_logits"], out["pred_boxes"])
             preds += [labels_to_text(l, charset) for l in greedy_labels(frames)]
-            nms_preds += [labels_to_text(l, charset) for l in
-                          nms_decode(out["pred_logits"], out["pred_boxes"], 0.3, 0.5)]
-            gts += list(batch_to_arrays(batch)["texts"])
-        stats = {"cer": metrics.corpus_cer(preds, gts), "wer": metrics.corpus_wer(preds, gts),
+            nms = nms_decode(out["pred_logits"], out["pred_boxes"], 0.3, 0.5)
+            nms_preds += [labels_to_text(l, charset) for l in nms]
+            nms_labels += [list(l) for l in nms]
+            host = batch_to_arrays(batch)
+            gts += list(host["texts"])
+            gt_labels += [np.asarray(l)[np.asarray(v, bool)].tolist()
+                          for l, v in zip(host["labels"], host["valid"])]
+        stats = {"cer": metrics.corpus_cer(preds, gts),
                  "nms_cer": metrics.corpus_cer(nms_preds, gts),
                  "loss_CTC": float(np.mean(losses)) if losses else float("nan"),
                  "n": len(preds)}
+        if spaceless:
+            stats["ar"], stats["cr"] = metrics.ar_cr(nms_labels, gt_labels)
+        else:
+            stats["wer"] = metrics.corpus_wer(preds, gts)
         self.log(f"eval: {stats}")
         self.append_log_line({"epoch": self.epoch, "eval": stats})
         return stats

@@ -13,7 +13,8 @@ Usage:
 ``NpzLines``), with per line ``labels`` (N,) int32, ``boxes`` (N, 4)
 cxcywh in [0, 1] and ``valid`` (N,) bool beside the uint8 ``images``,
 ``valid_hw`` and ``texts`` (``dtlr_tpu_torch/assets/smoke_detect.npz`` is
-one). Training lines come reshuffled from ``default_rng(0)`` through the
+one); its charset must have as many characters as ``--params`` has
+classes. Training lines come reshuffled from ``default_rng(0)`` through the
 recipe's ``BucketBatcher`` with the reuse pool (seed ``--seed``), the
 validation lines in order, unaugmented (seed ``--seed`` + 7), as
 dtlr_tpu/train/pretrain.py:214-246 has them. The settings are the
@@ -77,6 +78,14 @@ def main(argv=None) -> dict:
                    "args": vars(args)}, fh, indent=1)
     params = ckpt_lib.load_params_npz(args.params)
     trainer.log(f"loaded params snapshot {args.params}")
+    # JAX sizes the class head from the lines' charset
+    # (dtlr_tpu/train/pretrain.py:201-212); the port starts from the
+    # snapshot's head, so the two must agree, as finetune and evaluate
+    # require
+    classes = params["params/class_embed/fc/kernel"].shape[-1]
+    if classes != len(charset):
+        raise ValueError(f"the model has {classes} classes and the lines' charset "
+                         f"{len(charset)}: pretrain on lines of the snapshot's charset")
     trainer.build(params)
     space_label = charset.index(" ") if " " in charset else -1
     batches = make_batcher(cfg, dataset_iter(train_ds), True, args.seed, space_label,

@@ -28,9 +28,14 @@ from dtlr_tpu_torch.weights import load_into
 # normalizes 2 values per group, y = +-d / sqrt(d^2 + eps), which turns
 # that noise into 2.5e-4 where the two values are close (measured).
 LEVEL_TOL = 3e-4
-from test_torch_model import (NUM_CLASSES, TINY, assert_close, jax_tiny,
+from test_torch_model import (NUM_CLASSES, TINY, assert_close, default_threads, jax_tiny,
                               make_lines, perturbed_params)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def module_threads(default_threads):
+    """Every test here at torch's default intra-op threads."""
+    yield
 
 
 def test_prep_images_matches_jax():

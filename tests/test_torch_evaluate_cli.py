@@ -59,10 +59,21 @@ def run_jax_evaluate(monkeypatch, forward, argv, dataset=None):
     """The JAX package's evaluate ``main(argv)`` with ``forward(images,
     valid_hw) -> (logits, boxes)`` as its model (memoized per batch) and,
     if given, ``dataset`` as its dataset. Returns the records it logged
-    and the points it skipped."""
+    and the points it skipped. JAX's NMS keep mask, which its sweep
+    computes again for every TH of an NMS value (eagerly, a fresh scan
+    compile each call), is memoized by its inputs: the same function of
+    the same arrays, computed once."""
+    from dtlr_tpu.eval import decode as JD
     from dtlr_tpu.eval import evaluate as JE
 
-    logged, batchers, memo = [], [], {}
+    logged, batchers, memo, masks = [], [], {}, {}
+    nms_mask = JD.batched_nms_mask
+
+    def batched_nms_mask(boxes, scores, iou_threshold):
+        key = (image_key(boxes), image_key(scores), float(iou_threshold))
+        if key not in masks:
+            masks[key] = nms_mask(boxes, scores, iou_threshold)
+        return masks[key]
 
     def eval_fn(params, arrays):
         key = image_key(arrays["images"])
@@ -92,6 +103,7 @@ def run_jax_evaluate(monkeypatch, forward, argv, dataset=None):
             super().__init__(*a, **kw)
             batchers.append(self)
 
+    monkeypatch.setattr(JD, "batched_nms_mask", batched_nms_mask)
     monkeypatch.setattr(JE, "Trainer", Trainer)
     monkeypatch.setattr(JE, "BucketBatcher", RecordedBatcher)
     if dataset is not None:

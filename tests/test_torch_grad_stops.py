@@ -42,8 +42,15 @@ from dtlr_tpu_torch.ops.pixels import prep_images
 from dtlr_tpu_torch.eval.evaluate import load_lines
 from dtlr_tpu_torch.train.checkpoints import params_to_flax
 from dtlr_tpu_torch.weights import load_into, params_from_npz
-from test_torch_model import NUM_CLASSES, TINY, jax_tiny, make_lines
+from test_torch_model import NUM_CLASSES, TINY, default_threads, jax_tiny, make_lines
 from test_torch_smoke_fixture import FIXTURE, PARAMS
+
+
+@pytest.fixture(scope="module", autouse=True)
+def module_threads(default_threads):
+    """Every test here at torch's default intra-op threads."""
+    yield
+
 
 TOL, BACKBONE_TOL, FLOOR = 2e-3, 5e-2, 1e-3
 #: leaves held to BACKBONE_TOL

@@ -13,9 +13,11 @@ self-attention's CDN group mask (``query_group``) on the no-prior
 instantiations: the flagship step's layout (a 128-query denoising prefix
 before 900 matching queries, Q = S = 1028, so the matching rows' first
 two 64-key tiles are blocked whole), several denoising groups, ragged
-shapes, strided views, and the gradient through ``RecomputeGrad``. An
-out-of-range gather index fails the kernel's device-side assert, which
-is checked in a child process.
+shapes, strided views, and the gradient through ``RecomputeGrad``. The
+fp32 kernel (3xTF32) on V rows that ramp over the key index (its key
+order in P.V) and against a float64 reference (within twice the plain
+fp32 version's error). An out-of-range gather index fails the kernel's
+device-side assert, which is checked in a child process.
 Tolerances: 1e-4 in fp32 (summation order) and 2e-2 with bf16 inputs,
 as tests/test_flash_attn.py holds the Pallas kernel. Gradients through
 the kernel path recompute through the plain version, so they match its
@@ -23,6 +25,7 @@ autograd gradients to 1e-5 of their scale (fp32) or 1e-2 (bf16 inputs
 and gradients). The row gather is exact.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -118,6 +121,81 @@ def test_fully_masked_row_is_uniform(cuda, dtype, tol):
         assert float((got[0] - mean).abs().max()) <= tol, name
         want = tfa.dense_reference(qh, kh, vh, key_bias, pr)
         assert float((got - want).abs().max()) <= tol, name
+
+
+def dense_f64(qh, kh, vh, key_bias, prior, group=None):
+    """``dense_reference``'s math in float64."""
+    logits = qh.double() @ kh.double().transpose(-1, -2) / math.sqrt(D)
+    if prior is not None:
+        lvl = prior.level.long()
+        dx = (prior.px.double() - prior.cx.double()[..., lvl]) * prior.ihw.double()[..., lvl]
+        dy = (prior.py.double() - prior.cy.double()[..., lvl]) * prior.ihh.double()[..., lvl]
+        logits = logits - (0.5 * prior.gamma.double())[None, :, None, None] * (dx * dx + dy * dy)[:, None]
+    logits = logits + key_bias.double()[:, None, None, :]
+    if group is not None:
+        logits = logits.masked_fill(tfa.group_blocked(group), torch.finfo(torch.float64).min)
+    return logits.softmax(-1) @ vh.double()
+
+
+def ramp_values(vh):
+    """V rows that ramp over the key index, 0 to 1 across each 64-key tile,
+    plus d/32 over the head dims: a key or dim that the kernel pairs with
+    another's probability moves the output."""
+    S = vh.shape[2]
+    s = torch.arange(S, device=vh.device, dtype=torch.float32) % 64 / 63
+    d = torch.arange(D, device=vh.device, dtype=torch.float32) / 32
+    return (s[:, None] + d).expand(vh.shape).to(vh.dtype).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,S,Q", [("mha_box", 3570, 900), ("mha_box", 2720, 900),
+                                      ("mha", 900, 900), ("mha_masked", 1028, 1028)])
+def test_fp32_ramp_values_keep_key_order(cuda, name, S, Q):
+    """The fp32 kernel feeds the score fragment's key columns 2t, 2t+1 to
+    P.V as k indices t, t+4 and reads V's rows and dims in that permuted
+    order. On V rows that ramp over the key index, under peaked attention
+    (q times 4), swapping each key pair's values moves the plain output by
+    far more than the tolerance, and the kernel keeps 1e-4."""
+    if name == "mha_box":
+        qh, kh, vh, key_bias, prior = inputs(S, Q, torch.float32, cuda, seed=7, strided=True)
+        group = None
+    else:
+        group = cdn_groups(100, 64, 900, cuda) if name == "mha_masked" else None
+        qh, kh, vh = self_inputs(Q, torch.float32, cuda, seed=7, strided=True)
+        key_bias, prior = torch.zeros(B, Q, device=cuda), None
+    qh, vh = qh * 4, ramp_values(vh)
+    got = tfa.flash_mha(qh, kh, vh, key_bias, prior, group)
+    torch.cuda.synchronize()
+    want = tfa.dense_reference(qh, kh, vh, key_bias, prior, group)
+    swapped = vh.unflatten(2, (-1, 2)).flip(3).flatten(2, 3)
+    moved = tfa.dense_reference(qh, kh, swapped, key_bias, prior, group)
+    assert float((moved - want).abs().max()) > 10 * 1e-4
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,S,Q", [("mha_box", 2720, 900), ("mha", 900, 900),
+                                      ("mha_masked", 1028, 1028)])
+def test_fp32_kernel_keeps_fp32_accuracy(cuda, name, S, Q):
+    """3xTF32 on the decoder's strided views at its shapes: against a
+    float64 reference the kernel's error stays within twice the plain
+    fp32 version's and far inside 1e-4 (a single TF32 product would not,
+    tests/test_torch_tf32x3.py)."""
+    if name == "mha_box":
+        qh, kh, vh, key_bias, prior = inputs(S, Q, torch.float32, cuda, seed=8, strided=True)
+        group = None
+    else:
+        group = cdn_groups(100, 64, 900, cuda) if name == "mha_masked" else None
+        qh, kh, vh = self_inputs(Q, torch.float32, cuda, seed=8, strided=True)
+        key_bias, prior = torch.zeros(B, Q, device=cuda), None
+    got = tfa.flash_mha(qh, kh, vh, key_bias, prior, group)
+    torch.cuda.synchronize()
+    exact = dense_f64(qh, kh, vh, key_bias, prior, group)
+    plain = tfa.dense_reference(qh, kh, vh, key_bias, prior, group)
+    err = float((got.double() - exact).abs().max())
+    assert torch.isfinite(got).all()
+    assert err <= 2 * float((plain.double() - exact).abs().max())
+    assert err <= 1e-5
 
 
 @pytest.mark.gpu

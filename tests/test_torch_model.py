@@ -12,6 +12,8 @@ about 1e-5 to 4e-5 of the scale in the backbone's outputs (measured, see
 test_torch_backbone.py).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,29 @@ from dtlr_tpu_torch.models import transformer as port_transformer
 from dtlr_tpu_torch.models.dino import DinoConfig, build_dino
 from dtlr_tpu_torch.ops.pixels import prep_images
 from dtlr_tpu_torch.weights import load_into
+
+# Under pytest-xdist each worker collects every test module, this one
+# included: share the cores among the workers. Left at its default, every
+# worker's torch runs one intra-op thread per core, and oversubscribed,
+# OpenMP's waiting threads slow the port's CPU work many times over (in
+# the tier-1 run, six workers on 8 cores, test_torch_batching.py took
+# 230 s at one thread per core and 11 s with the cores shared).
+DEFAULT_THREADS = torch.get_num_threads()
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0))
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
+
+@pytest.fixture(scope="module")
+def default_threads():
+    """torch's default intra-op threads for a module whose tolerances were
+    measured with them: the full-depth ResNet-50's float noise, which its
+    tests hold against JAX's, moves with the convolutions' threading."""
+    shared = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    yield
+    torch.set_num_threads(shared)
+
 
 TOL = 1e-4
 TINY = DinoConfig(num_queries=24, hidden_dim=32, nheads=4, enc_layers=2,

@@ -47,6 +47,11 @@ def files(tmp_path_factory):
              labels=lines["labels"][:4], boxes=np.where(inside[..., None], boxes, 0),
              valid=inside, texts=np.asarray(lines["texts"][:4]),
              charset=np.asarray(lines["charset"]))
+    # the same lines under a charset of 64 characters, which the 166-class
+    # head does not fit
+    with np.load(d / "lines.npz") as z:
+        np.savez(d / "charset_64.npz", **{k: z[k] for k in z.files if k != "charset"},
+                 charset=np.asarray(lines["charset"][:64]))
     np.savez(d / "no_boxes.npz", images=lines["images"][:2, :, :WIDTH],
              valid_hw=np.minimum(lines["valid_hw"][:2], [128, WIDTH]).astype(np.int32),
              texts=np.asarray(lines["texts"][:2]), charset=np.asarray(lines["charset"]))
@@ -93,3 +98,12 @@ def test_refuses_lines_without_boxes(files, tmp_path):
         run(files, tmp_path, "no_boxes.npz")
     with pytest.raises(KeyError, match="unknown option"):
         run(files, tmp_path, "lines.npz", "nope=1")
+
+
+def test_refuses_a_charset_the_class_head_does_not_fit(files, tmp_path):
+    """JAX sizes the class head from the lines' charset; the port starts
+    from the snapshot's head and refuses lines whose charset has another
+    size, as finetune and evaluate do."""
+    with pytest.raises(ValueError, match="166 classes and the lines' charset 64"):
+        run(files, tmp_path, "charset_64.npz")
+    assert not (tmp_path / "checkpoint").exists()

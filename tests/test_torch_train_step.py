@@ -189,12 +189,18 @@ def test_two_steps_match_jax(setup, two_steps):
 def jax_skipped_step(jstate, tx):
     """What JAX's step does after a non-finite loss
     (dtlr_tpu/train/train_step.py:135-147): zeroed gradients through
-    ``tx.update``, the updates zeroed, EMA with the step's decay."""
-    zeros = jax.tree.map(jnp.zeros_like, jstate.params)
-    _, opt_state = tx.update(zeros, jstate.opt_state, jstate.params)
-    d = jax_warmed_decay(CFG.ema_decay, jstate.step)
-    ema = jax.tree.map(lambda e, p: e * d + (1 - d) * p, jstate.ema_params, jstate.params)
-    return jstate._replace(opt_state=opt_state, step=jstate.step + 1, ema_params=ema)
+    ``tx.update``, the updates zeroed, EMA with the step's decay; jitted
+    as the step that holds it is (eagerly, each of the tree's ops would
+    compile apart)."""
+    @jax.jit
+    def skip(jstate):
+        zeros = jax.tree.map(jnp.zeros_like, jstate.params)
+        _, opt_state = tx.update(zeros, jstate.opt_state, jstate.params)
+        d = jax_warmed_decay(CFG.ema_decay, jstate.step)
+        ema = jax.tree.map(lambda e, p: e * d + (1 - d) * p, jstate.ema_params, jstate.params)
+        return jstate._replace(opt_state=opt_state, step=jstate.step + 1, ema_params=ema)
+
+    return skip(jstate)
 
 
 def test_nan_step_is_skipped_like_jax(setup, jax_step):
