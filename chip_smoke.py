@@ -89,6 +89,30 @@ Phases, each printing one JSON line with its seconds:
            point python -m dtlr_tpu_torch.train.pretrain through the
            recipe's batcher with the reuse pool (each step's batch the
            data phase's)
+  pretrain the training entry points from config files, as the repository's
+           scripts ran the JAX package's: (a) python -m
+           dtlr_tpu_torch.train.pretrain -c configs/Latin_TPU.py from a fresh
+           initialization on the detection fixture's lines with
+           scripts/round4_chain.sh's options, 2 epochs of 2 steps, each
+           evaluated with the raw and the EMA weights (finite losses; CER,
+           NMS CER and the decode's diagnostics in every evaluation), then a
+           warm start of the same recipe from artifacts/r4run_params.npz
+           (474 leaves copied, 0 fresh, 0 unused) and its --eval; (b)
+           -c configs/Chinese_TPU.py on the HWDB_synth stream of the committed
+           GNT bank (dtlr_tpu_torch/assets/smoke_hwdb.gnt) warm-started from
+           the same npz as scripts/hwdb_real.sh does (the fresh leaves
+           exactly the class heads and the label encoder), 3 steps whose
+           batches hash to the JAX package's (assets/smoke_hwdb_ref.json),
+           evaluated raw and EMA; then the same command with --epochs 2,
+           which must resume at epoch 1, step 3 with the saved parameters,
+           optimizer state and EMA exactly, and finish its epoch; then
+           python -m dtlr_tpu_torch.eval.evaluate --config <run>/config_cfg.py
+           on 8 HWDB lines (AR and CR); (c) python -m
+           dtlr_tpu_torch.train.finetune -c configs/HWDB_full_TPU.py from
+           (b)'s run directory (finite CTC losses). Each sub-run's
+           attention launches against the count its steps and evaluations
+           must make, its ms per step (host clock around each step, the
+           card synchronized) and its peak memory
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel (the attention
 in bf16 and, as ``*_fp32``, in fp32, at each dtype's path), the card's name
@@ -235,6 +259,26 @@ MAX_LOGIT_TOL, BOX_TOL, SWAP_GAP_TOL, CER_VS_JAX = 5e-2, 5e-3, 1e-3, 0.01
 # this much above JAX's, and swaps only between scores at most four bf16
 # steps (of 2^-4 at 8-16) apart
 CER_VS_JAX_BF16, CER_GT_SLACK_BF16, SWAP_GAP_TOL_BF16 = 0.02, 0.01, 0.25
+
+
+# the pretrain phase: the config files and the scripts' options, the HWDB
+# glyph bank and JAX's first batches on it (tests/test_torch_hwdb_synth.py),
+# the leaves whose shape follows the class count
+CONFIGS = os.path.join(REPO, "dtlr_tpu_torch", "configs")
+HWDB_BANK = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_hwdb.gnt")
+HWDB_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_hwdb_ref.json")
+# scripts/round4_chain.sh:51-56, less its corpus files (the port reads the
+# fixture's rendered lines) and its RSS limit (a TPU host's workaround)
+ROUND4_OPTIONS = ["batch_size=8", "use_ema=True", "warmup_steps=200", "max_targets=64",
+                  "data_aug_scales=[128]", "data_aug_max_size=1024", "image_w_max=1024",
+                  "image_h_max=192", "synthetic_max_words=5", "eval_set_size=200",
+                  "save_checkpoint_interval=20", "lr_drop=50000", "batch_norm_type=group",
+                  "lr_backbone=1e-4", "dense_box_bias=True"]
+CLASS_LEAVES = ["params/class_embed/fc/bias", "params/class_embed/fc/kernel",
+                "params/enc_out_class_embed/fc/bias", "params/enc_out_class_embed/fc/kernel",
+                "params/label_enc"]
+EVAL_KEYS = {"cer", "nms_cer", "loss_CTC", "max_conf", "mean_max_conf", "nq@0.05", "nq@0.1",
+             "nq@0.2", "nq@0.3", "p_gt_matched"}
 
 
 def emit(obj):
@@ -1387,7 +1431,8 @@ def phase_detect(card, data_hashes):
         seen, unspy = spy_step_batches()
         try:
             cli = pretrain.main(["--params", DETECT_PARAMS, "--lines", DETECT_LINES,
-                                 "--output_dir", os.path.join(workdir, "cli"), "--steps", "2"])
+                                 "--output_dir", os.path.join(workdir, "cli"), "--epochs", "1",
+                                 "--steps_per_epoch", "2"])
         finally:
             unspy()
         torch.cuda.synchronize()
@@ -1408,6 +1453,237 @@ def phase_detect(card, data_hashes):
         raise AssertionError(f"detect phase checks failed: {failed} (steps: 0 is the first "
                              "against JAX's, 'timed' the 12 recipe steps and the entry point)")
     return records, launches
+
+
+def batch_field_hashes(batch) -> dict:
+    """sha256 of each array of a batch, as tests/test_torch_hwdb_synth.py
+    hashes JAX's, and its texts."""
+    import hashlib
+
+    from dtlr_tpu_torch.train import engine
+
+    a = engine.batch_to_arrays(batch)
+    h = lambda x: hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+    return {"images": h(np.asarray(a["images"], np.uint8)), "labels": h(a["labels"]),
+            "valid": h(a["valid"]), "valid_hw": h(a["valid_hw"]),
+            "boxes": h(np.asarray(a["boxes"], np.float32)), "texts": list(a["texts"])}
+
+
+def spy_timed_steps():
+    """Wrap ``Trainer.step`` to time each step on the host clock with the
+    card synchronized before and after, and to hash its batch; returns the
+    list of records and the function that unwraps it."""
+    from dtlr_tpu_torch.train import engine
+
+    steps, orig = [], engine.Trainer.step
+
+    def step(self, batch, mark=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = orig(self, batch, mark)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3, "batch": batch_field_hashes(batch)})
+        return m
+
+    engine.Trainer.step = step
+    return steps, lambda: setattr(engine.Trainer, "step", orig)
+
+
+def same_state(a, b) -> bool:
+    """Equal exactly: tensors (on any device) bit for bit, containers key
+    for key."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(same_state(a[k], b[k]) for k in a)
+    return a == b
+
+
+def sub_run(name, fn, expect):
+    """One entry point's run: the attention launches it made (counts from
+    0) against ``expect(result)``, its steps' ms, its peak memory."""
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps, unspy = spy_timed_steps()
+    t0 = time.perf_counter()
+    try:
+        result = fn()
+    finally:
+        unspy()
+    torch.cuda.synchronize()
+    launches = dict(flash_mha.launches)
+    want = expect(result, len(steps))
+    ms = [s["ms"] for s in steps]
+    record = {"phase": "pretrain", "run": name, "seconds": time.perf_counter() - t0,
+              "steps": len(steps), "ms_per_step": ms,
+              "ms_per_step_median": float(np.median(ms)) if ms else None,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "launches": launches, "launches_expected": want, "ok": launches == want}
+    return result, steps, record
+
+
+def eval_forwards(result):
+    """The eval forwards of a pretraining run: each evaluation of the
+    held-out set, and the detection loss's at the end."""
+    return sum(len(e["evals"]) for e in result["epochs"]) + ("eval" in result)
+
+
+def phase_pretrain(card):
+    """The training entry points from config files (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+
+    from dtlr_tpu_torch.eval import evaluate
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.train import checkpoints as ckpt_lib
+    from dtlr_tpu_torch.train import engine, finetune, pretrain
+
+    n_dec = FLAGSHIP.dec_layers
+    with open(HWDB_REF) as fh:
+        hwdb_ref = json.load(fh)
+    records = []
+    with tempfile.TemporaryDirectory() as workdir:
+        # (a) Latin from scratch, as scripts/round4_chain.sh ran it
+        latin = ["-c", os.path.join(CONFIGS, "Latin_TPU.py"), "--lines", DETECT_LINES,
+                 "--seed", "0", "--options", *ROUND4_OPTIONS]
+        a_dir = os.path.join(workdir, "latin")
+        eval_batches = 1  # the fixture's 8 lines, batch 8
+
+        def latin_launches(res, steps):
+            n_eval = eval_forwards(res) * eval_batches
+            return {"mha_box": n_dec * (steps + n_eval), "mha": n_dec * n_eval,
+                    "mha_masked": n_dec * steps}
+
+        res, _, rec = sub_run("latin_scratch", lambda: pretrain.main(
+            [*latin, "--output_dir", a_dir, "--epochs", "2", "--steps_per_epoch", "2",
+             "--eval_every", "1"]), latin_launches)
+        evals = [e for ep in res["epochs"] for e in ep["evals"]]
+        losses = [ep["train"]["loss"] for ep in res["epochs"]] + [res["eval"]["loss"]]
+        rec.update(train=[ep["train"] for ep in res["epochs"]], evals=evals,
+                   detection_eval=res["eval"], card=card)
+        rec["ok"] = (rec["ok"] and rec["steps"] == 4 and res["warm_start"] is None
+                     and all(math.isfinite(x) for x in losses)
+                     and [e["tag"] for e in evals] == ["eval", "eval_ema"] * 2
+                     and all(EVAL_KEYS <= set(e) and "wer" in e for e in evals))
+        records.append(rec)
+        emit(rec)
+
+        res, _, rec = sub_run("latin_warm_start_eval", lambda: pretrain.main(
+            [*latin, "--output_dir", os.path.join(workdir, "latin_warm"), "--eval",
+             "--warm_start_npz", DETECT_PARAMS]),
+            lambda res, steps: {"mha_box": n_dec * eval_batches, "mha": n_dec * eval_batches,
+                                "mha_masked": 0})
+        rec.update(warm_start=res["warm_start"], evals=res["evals"], card=card)
+        counts = {k: res["warm_start"][k] for k in ("copied", "fresh", "unused")}
+        rec["ok"] = (rec["ok"] and counts == {"copied": 474, "fresh": 0, "unused": 0}
+                     and EVAL_KEYS <= set(res["evals"][0]))
+        records.append(rec)
+        emit(rec)
+
+        # (b) HWDB warm-started from the Latin trunk, as scripts/hwdb_real.sh
+        root = os.path.join(workdir, "hwdb")
+        os.makedirs(os.path.join(root, "HWDB_gnt"))
+        shutil.copy(HWDB_BANK, os.path.join(root, "HWDB_gnt", "smoke_hwdb.gnt"))
+        b_dir = os.path.join(workdir, "hwdb_run")
+        hwdb = ["-c", os.path.join(CONFIGS, "Chinese_TPU.py"), "--dataset_file", "HWDB_synth",
+                "--data_root", root, "--output_dir", b_dir, "--warm_start_npz", DETECT_PARAMS,
+                "--steps_per_epoch", "3", "--eval_every", "1", "--seed", str(hwdb_ref["seed"]),
+                "--options", *hwdb_ref["options"]]
+        eval_batches = 2  # eval_set_size 8, batch 4
+
+        def hwdb_launches(res, steps):
+            n_eval = eval_forwards(res) * eval_batches
+            return {"mha_box": n_dec * (steps + n_eval), "mha": n_dec * n_eval,
+                    "mha_masked": n_dec * steps}
+
+        res, steps, rec = sub_run("hwdb_warm_start", lambda: pretrain.main(
+            [*hwdb, "--epochs", "1"]), hwdb_launches)
+        seen = [s["batch"] for s in steps]
+        evals = [e for ep in res["epochs"] for e in ep["evals"]]
+        rec.update(warm_start=res["warm_start"], num_classes=res["num_classes"],
+                   dn_labelbook_size=res["dn_labelbook_size"], evals=evals,
+                   train=res["train"], detection_eval=res["eval"],
+                   batches_equal_jax=[b == r for b, r in zip(seen, hwdb_ref["batches"])],
+                   card=card)
+        n = res["num_classes"]
+        rec["ok"] = (rec["ok"] and rec["steps"] == 3
+                     and res["warm_start"]["fresh_leaves"] == CLASS_LEAVES
+                     and (res["warm_start"]["copied"], res["warm_start"]["fresh"]) == (469, 5)
+                     and res["dn_labelbook_size"] == n and len(seen) == 3
+                     and all(rec["batches_equal_jax"])
+                     and math.isfinite(res["train"]["loss"]) and math.isfinite(res["eval"]["loss"])
+                     and [e["tag"] for e in evals] == ["eval", "eval_ema"]
+                     and all(EVAL_KEYS | {"ar", "cr"} <= set(e) for e in evals))
+        records.append(rec)
+        emit(rec)
+
+        # the same command with a second epoch: it resumes the saved state
+        saved = ckpt_lib.restore_checkpoint(os.path.join(b_dir, "checkpoint"))
+        resumed = {}
+        orig = engine.Trainer.try_resume
+
+        def try_resume(self, name="checkpoint"):
+            ok = orig(self, name)
+            resumed["equal"] = all(same_state(v, saved[k])
+                                   for k, v in self.checkpoint_state().items())
+            return ok
+
+        engine.Trainer.try_resume = try_resume
+        try:
+            res, _, rec = sub_run("hwdb_resume", lambda: pretrain.main(
+                [*hwdb, "--epochs", "2"]), hwdb_launches)
+        finally:
+            engine.Trainer.try_resume = orig
+        after = ckpt_lib.restore_checkpoint(os.path.join(b_dir, "checkpoint"))
+        rec.update(resumed=res["resumed"], state_equal_saved=resumed.get("equal"),
+                   epochs=[ep["epoch"] for ep in res["epochs"]], step_after=after["step"],
+                   train=res["train"], card=card)
+        rec["ok"] = (rec["ok"] and resumed.get("equal") is True
+                     and (res["resumed"]["epoch"], res["resumed"]["step"]) == (1, 3)
+                     and rec["epochs"] == [1] and after["step"] == 6 and after["epoch"] == 2
+                     and math.isfinite(res["train"]["loss"]))
+        records.append(rec)
+        emit(rec)
+
+        res, _, rec = sub_run("evaluate_hwdb", lambda: evaluate.main(
+            ["--config", os.path.join(b_dir, "config_cfg.py"), "--ckpt_dir", b_dir,
+             "--dataset", "HWDB_synth", "--mode", "val", "--data_root", root,
+             "--metrics", "chinese", "--TH", "0.2", "--NMS", "0.5", "--max_images", "8"]),
+            lambda res, steps: {"mha_box": n_dec, "mha": n_dec, "mha_masked": 0})
+        best = res["best"]["record"]
+        rec.update(best=best, lines=res["lines"], lines_per_s=res["lines_per_s"], card=card)
+        rec["ok"] = (rec["ok"] and res["lines"] == 8
+                     and all(math.isfinite(best[k]) for k in ("AR", "CR")))
+        records.append(rec)
+        emit(rec)
+
+        # (c) HWDB CTC finetune from (b)'s run, as scripts/round5_chain.sh
+        def finetune_launches(res, steps):
+            n_eval = 1 + eval_batches  # the first step's training CER, the held-out set
+            return {"mha_box": n_dec * (steps + n_eval), "mha": n_dec * (steps + n_eval),
+                    "mha_masked": 0}
+
+        res, _, rec = sub_run("hwdb_finetune", lambda: finetune.main(
+            ["-c", os.path.join(CONFIGS, "HWDB_full_TPU.py"), "--dataset_file", "HWDB_synth",
+             "--data_root", root, "--pretrain_dir", b_dir,
+             "--output_dir", os.path.join(workdir, "hwdb_ft"), "--epochs", "1", "--seed", "11",
+             "--options", "max_iterations=2", "eval_epoch=1", *hwdb_ref["options"]]),
+            finetune_launches)
+        rec.update(train=res["train"], eval=res["eval"], card=card)
+        rec["ok"] = (rec["ok"] and rec["steps"] == 2 and math.isfinite(res["train"]["loss_CTC"])
+                     and math.isfinite(res["eval"]["loss_CTC"]) and "cer" in res["train"])
+        records.append(rec)
+        emit(rec)
+    failed = [r["run"] for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"pretrain phase checks failed: {failed}")
+    return records
 
 
 def image_sha256(images) -> str:
@@ -1631,6 +1907,11 @@ def main() -> int:
     detect_records, detect_launches = phase_detect(card, data_hashes)
 
     t0 = time.perf_counter()
+    pretrain_records = phase_pretrain(card)
+    emit({"phase": "pretrain", "runs": [r["run"] for r in pretrain_records],
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
           "seconds": time.perf_counter() - t0})
@@ -1666,7 +1947,8 @@ def main() -> int:
     paths = {"bfloat16": {"read_bf16_forward": launches["bfloat16"],
                           "sweep_bf16_90_points": sweep_launches["bfloat16"],
                           "ctc_train_bf16_12_steps": train_launches,
-                          "detect_bf16_12_steps": detect_launches},
+                          "detect_bf16_12_steps": detect_launches,
+                          **{f"pretrain_{r['run']}": r["launches"] for r in pretrain_records}},
              "float32": {"read_fp32_forward": launches["float32"],
                          "sweep_fp32_90_points": sweep_launches["float32"],
                          "ctc_train_fp32_first_step": train_fp32,

@@ -5,8 +5,10 @@ Its layout mirrors ``dtlr_tpu/``: ``models/`` (the DINO detector),
 the CTC loss and blank synthesis, NMS, the matcher), ``eval/`` (decode,
 metrics, the evaluate entry point and its sweep), ``train/`` (optimizer,
 train steps, checkpoints, the trainer and the finetune and pretrain
-entry points), ``data/`` (charsets, transforms, the bucketed batcher,
-npz line datasets) and ``utils/boxes.py``. The package
+entry points, the fresh initialization), ``data/`` (charsets,
+transforms, the bucketed batcher, npz line datasets, the HWDB synthetic
+stream), ``config/`` (the loader of recipe files) with ``configs/`` (the
+recipe files) and ``utils/boxes.py``. The package
 imports torch and numpy only; its CUDA sources live in ``csrc/`` and
 are compiled with ``nvcc`` at first use (``ops/flash_attn.py``).
 """

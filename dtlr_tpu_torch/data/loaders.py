@@ -7,11 +7,12 @@ boxes (n, 4) pixel xyxy or None, text}, as ``BucketBatcher`` takes it.
 ``NpzLines`` reads pre-rendered lines from an npz (uint8 ``images`` (N,
 H, W, 3) with ``valid_hw``, ``texts``, ``charset``, and optionally per
 line ``labels``, ``boxes`` normalized cxcywh and ``valid``): the port's
-source of training and evaluation lines. The JAX package's real
+source of training and evaluation lines. ``HWDB_synth`` is the
+generated Chinese stream (data/hwdb_synth.py). The JAX package's real
 datasets (IAM, READ, RIMES, HWDB, the ciphers, Google1000) decode their
-images with PIL, and the generated ones (``synthetic_line_OCR_general``,
-``HWDB_synth``) render with PIL and fonts: their names are registered
-here and raise, and such lines reach the port written to an npz.
+images with PIL, and ``synthetic_line_OCR_general`` renders with PIL and
+fonts: their names are registered here and raise, and such lines reach
+the port written to an npz.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ NEEDS_PIL = {
     "copiale": "decodes its line images with PIL",
     "google1000": "decodes its line images with PIL",
     "synthetic_line_OCR_general": "renders its lines with PIL and fonts",
-    "HWDB_synth": "composes its lines with PIL",
 }
 
 
@@ -113,9 +113,15 @@ class NpzLines(LineDataset):
 
 def build_dataset(name: str, mode: str = "train", root: str = "./data", **kw):
     """The registry (reference datasets/__init__.py:17-47): ``lines`` reads
-    an npz (``path=``); the JAX package's other names raise."""
+    an npz (``path=``), ``HWDB_synth`` is the generated Chinese stream
+    (``SyntheticHWDBGenerator``'s arguments); the JAX package's other
+    names raise."""
     if name == "lines":
         return NpzLines(kw["path"])
+    if name == "HWDB_synth":
+        from .hwdb_synth import SyntheticHWDBGenerator
+
+        return SyntheticHWDBGenerator(root=root, **kw)
     if name in NEEDS_PIL:
         raise NotImplementedError(
             f"dataset {name!r} {NEEDS_PIL[name]}, which the port does not use, and its data is "

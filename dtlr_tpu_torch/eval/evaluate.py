@@ -2,7 +2,8 @@
 dtlr_tpu/eval/evaluate.py).
 
 Usage:
-    python -m dtlr_tpu_torch.eval.evaluate --lines lines.npz \
+    python -m dtlr_tpu_torch.eval.evaluate (--lines lines.npz | --dataset HWDB_synth \
+        --data_root data [--eval_seed 0]) [--config run/config_cfg.py] \
         (--params artifacts/r4ft_params.npz | --ckpt_dir outputs/finetune [--ema]) \
         [--NMS 0.5 --TH 0.3 | --sweep [--sweep_th 0.3]] \
         [--metrics default|CER_only|chinese|cipher] [--max_images N] \
@@ -10,8 +11,16 @@ Usage:
         [--compute_dtype bfloat16|float32] [--options key=value ...]
 
 ``--lines`` is an npz of pre-rendered lines (``data/loaders.py``'s
-``NpzLines``); they are batched by the recipe's ``BucketBatcher`` without
-augmentation. The weights are an npz of ``params/...`` leaves
+``NpzLines``); ``--dataset HWDB_synth`` draws ``--max_images`` (default
+64) Chinese lines from the glyph bank under ``--data_root``/HWDB_gnt,
+seeded 321 + ``--eval_seed`` (dtlr_tpu/eval/evaluate.py:233-260). They
+are batched by the recipe's ``BucketBatcher`` without augmentation. The
+settings (data, model geometry, compute dtype) are a config file's with
+``--config`` (``dtlr_tpu_torch/configs/``, or a training run's dumped
+``config_cfg.py``), ``--options`` overriding its keys, else the recipe's
+(``RECIPE`` and ``FLAGSHIP``), ``--options`` overriding their fields;
+``--compute_dtype`` overrides either. The weights are an npz of
+``params/...`` leaves
 (``--params``) or the newest train state under ``--ckpt_dir``
 (``checkpoint``, else ``checkpoint_best_regular``), its EMA weights with
 ``--ema``. Decode: greedy (``--NMS`` <= 0, the default), one (TH, NMS)
@@ -24,7 +33,7 @@ computed once per NMS value and batch. Writes ``preds.txt``,
 ``gts.txt``, ``char_cer_impact.txt``, ``stats.json`` (and with
 ``--dump_detections`` ``detections.json``) of the best point to
 ``--out_dir`` (default ``<ckpt_dir or params dir>/stats_dect/<lines
-stem>/``) and prints its record as one JSON line.
+stem or dataset>/``) and prints its record as one JSON line.
 """
 
 from __future__ import annotations
@@ -44,11 +53,12 @@ import torch
 from .. import resolve_device
 from ..data.batching import make_batcher
 from ..data.charset import labels_to_text
-from ..data.loaders import NpzLines, eval_iter
+from ..data.hwdb_synth import hwdb_stream
+from ..data.loaders import NpzLines, build_dataset, eval_iter
 from ..models.dino import FLAGSHIP, DINO, DinoConfig, build_dino
 from ..ops.pixels import prep_images
 from ..train import checkpoints as ckpt_lib
-from ..train.config import RECIPE, apply_options
+from ..train.config import load_settings
 from ..weights import load_into, params_from_npz
 from . import metrics as M
 from .decode import (greedy_decode, greedy_labels, nms_candidates, nms_decode,
@@ -352,10 +362,19 @@ def parse_args(argv=None):
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--params", help="npz of params/... leaves")
     src.add_argument("--ckpt_dir", help="a training run's output_dir")
-    p.add_argument("--lines", required=True, help="npz of pre-rendered lines")
+    lines = p.add_mutually_exclusive_group(required=True)
+    lines.add_argument("--lines", help="npz of pre-rendered lines")
+    lines.add_argument("--dataset", help="HWDB_synth (lines from the glyph bank)")
+    p.add_argument("--mode", default="test", choices=["val", "test", "valid"])
+    p.add_argument("--data_root", default="./data")
+    p.add_argument("--eval_seed", type=int, default=0,
+                   help="offset of the generated lines' seed (321)")
+    p.add_argument("--config", default=None,
+                   help="config file, or a training run's config_cfg.py")
     p.add_argument("--ema", action="store_true", help="the train state's EMA weights")
     p.add_argument("--options", nargs="*", default=None,
-                   help="key=value overrides of DinoConfig or the data settings")
+                   help="key=value overrides of the config's keys (or, without --config, of "
+                        "DinoConfig's and the data settings' fields)")
     p.add_argument("--NMS", type=float, default=-1.0, help="<= 0: greedy decode")
     p.add_argument("--TH", type=float, default=-1.0)
     p.add_argument("--sweep", action="store_true")
@@ -368,9 +387,23 @@ def parse_args(argv=None):
     p.add_argument("--dump_detections", action="store_true")
     p.add_argument("--out_dir", default=None)
     p.add_argument("--device", default="cuda")
-    p.add_argument("--compute_dtype", default=FLAGSHIP.compute_dtype,
-                   choices=("bfloat16", "float32"))
+    p.add_argument("--compute_dtype", default=None, choices=("bfloat16", "float32"),
+                   help="default: the settings' (the recipe's bfloat16)")
     return p.parse_args(argv)
+
+
+def eval_lines(args, data_cfg):
+    """The lines to read (a dataset or a list of sample dicts), their
+    charset, whether its symbols are tokens, and their name."""
+    if args.lines is not None:
+        ds = NpzLines(args.lines)
+        return ds, ds.charset, ds.token_based, os.path.splitext(os.path.basename(args.lines))[0]
+    if args.dataset != "HWDB_synth":
+        build_dataset(args.dataset, args.mode, root=args.data_root)  # raises
+    gen = hwdb_stream(args.data_root, 321 + args.eval_seed, data_cfg.hwdb_charset_pickle,
+                      data_cfg.hwdb_glyphs_per_line)
+    n = args.max_images if args.max_images > 0 else 64
+    return [gen.sample() for _ in range(n)], gen.charset, False, args.dataset
 
 
 def main(argv=None) -> dict:
@@ -379,19 +412,21 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    data_cfg, model_cfg = apply_options(
-        RECIPE, dataclasses.replace(FLAGSHIP, compute_dtype=args.compute_dtype), args.options)
+    data_cfg, model_cfg, _, unread = load_settings(args.config, args.options, "ctc")
+    if unread:
+        print(f"config keys the port does not read: {unread}", file=sys.stderr)
+    if args.compute_dtype is not None:
+        model_cfg = dataclasses.replace(model_cfg, compute_dtype=args.compute_dtype)
     data_cfg = dataclasses.replace(data_cfg, batch_size=args.batch_size)
-    ds = NpzLines(args.lines)
+    ds, charset, token_based, name = eval_lines(args, data_cfg)
     tree = load_weights(args.params, args.ckpt_dir, args.ema)
     classes = tree["params/class_embed/fc/kernel"].shape[-1]
-    if classes != len(ds.charset):
+    if classes != len(charset):
         raise ValueError(f"the model has {classes} classes and the lines' charset "
-                         f"{len(ds.charset)}")
+                         f"{len(charset)}")
     model = model_from_tree(tree, model_cfg, str(device))
     base = args.ckpt_dir or os.path.dirname(os.path.abspath(args.params))
-    out_dir = args.out_dir or os.path.join(
-        base, "stats_dect", os.path.splitext(os.path.basename(args.lines))[0])
+    out_dir = args.out_dir or os.path.join(base, "stats_dect", name)
 
     t0 = time.perf_counter()
     batches = make_batcher(data_cfg, eval_iter(ds), False, 0)
@@ -401,7 +436,7 @@ def main(argv=None) -> dict:
         batches.stop()
     log = lambda msg: print(msg, file=sys.stderr, flush=True)
     grid = sweep_grid(args.sweep, args.sweep_th, args.TH, args.NMS)
-    res = sweep(outputs, ds.charset, grid, args.metrics, ds.token_based, log)
+    res = sweep(outputs, charset, grid, args.metrics, token_based, log)
     seconds = time.perf_counter() - t0
     dets = detections(outputs, NUM_SELECT) if args.dump_detections else None
     write_stats(out_dir, res["best"], dets)

@@ -5,6 +5,8 @@ checkpoints (counterpart of dtlr_tpu/train/checkpoints.py:106-263).
   parameters with the JAX package's flat ``params/...`` keys and flax
   layouts, so that each package loads the other's exports
   (``weights.load_into`` carries a loaded tree into a model).
+- ``merge_params_npz``: the warm start, an npz's leaves that fit copied
+  into a fresh tree.
 - ``smart_mapping_rows`` / ``surgery_class_heads``: new class heads and
   label-encoder rows for another charset, rows of characters that the
   old charset has copied, the others drawn anew from an explicit
@@ -84,6 +86,28 @@ def load_params_npz(path: str, dtype: str = "float32") -> Dict[str, np.ndarray]:
     with np.load(path) as npz:
         return {k: (npz[k].astype(dtype) if np.issubdtype(npz[k].dtype, np.floating)
                     else npz[k]) for k in npz.files}
+
+
+def merge_params_npz(tree: Mapping[str, np.ndarray], path: str,
+                     dtype: str = "float32"):
+    """The tolerant warm start (dtlr_tpu/train/checkpoints.py:166-199):
+    every npz leaf whose key is in ``tree`` with the same shape is copied
+    (floating leaves cast to ``dtype``), every other leaf of ``tree``
+    keeps its fresh value. Returns the merged tree (a new dict; a fresh
+    leaf is the same object as in ``tree``) and the counts ``copied``,
+    ``fresh`` (in ``tree``, not taken from the npz) and ``unused`` (npz
+    leaves not taken)."""
+    out = dict(tree)
+    copied = unused = 0
+    with np.load(path) as npz:
+        for key in npz.files:
+            arr = npz[key]
+            if key in out and tuple(arr.shape) == tuple(np.shape(out[key])):
+                out[key] = arr.astype(dtype) if np.issubdtype(arr.dtype, np.floating) else arr
+                copied += 1
+            else:
+                unused += 1
+    return out, {"copied": copied, "fresh": len(out) - copied, "unused": unused}
 
 
 # ---------------------------------------------------------------- surgery

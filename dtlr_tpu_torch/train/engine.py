@@ -1,9 +1,10 @@
 """The training loop (counterpart of dtlr_tpu/train/engine.py:75-573):
 build the train state from a parameter tree, run epochs of steps,
 evaluate, save and resume the whole train state. ``mode="ctc"`` is CTC
-finetuning (greedy CER/WER evaluation), ``mode="detection"`` the DINO
-detection pretraining step with contrastive denoising (detection-loss
-evaluation).
+finetuning, ``mode="detection"`` the DINO detection pretraining step
+with contrastive denoising. ``evaluate_ctc`` reads a held-out set (greedy
+and NMS CER, the decode's diagnostics; the raw or the EMA weights) in
+either mode; ``evaluate_detection`` gives the detection loss.
 
 Batches are ``data.batching.Batch``es as ``BucketBatcher`` makes them
 (``images`` (B, H, W, 3) uint8, ``valid_hw`` (B, 2) int32, ``labels``
@@ -21,7 +22,7 @@ import json
 import os
 import time
 import types
-from typing import Dict, Iterable, Mapping, Optional, Sequence
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +44,8 @@ from .train_step import (TrainState, init_train_state, make_ctc_train_step,
                          make_detection_train_step)
 
 MODES = ("ctc", "detection")
+#: the score thresholds of evaluate_ctc's nq@TH diagnostics
+DIAGNOSTIC_TH = (0.05, 0.1, 0.2, 0.3)
 #: the metrics ``train_epoch`` reads back and logs, per mode
 LOGGED = {"ctc": ("loss", "loss_CTC", "skipped"),
           "detection": ("loss", "loss_ce", "loss_bbox", "loss_giou", "loss_ce_dn", "skipped")}
@@ -76,6 +79,23 @@ def collate(lines: Mapping, index: Sequence[int], charset: Sequence[str],
     return batch
 
 
+def box_iou_cxcywh(gt: np.ndarray, pred: np.ndarray) -> np.ndarray:
+    """IoU of (T, 4) target and (Q, 4) predicted normalized cxcywh boxes,
+    (T, Q), in numpy (dtlr_tpu/train/engine.py:46-61)."""
+    def to_xyxy(b):
+        cx, cy, w, h = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+        return np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+    g, p = to_xyxy(gt)[:, None], to_xyxy(pred)[None]
+    lt = np.maximum(g[..., :2], p[..., :2])
+    rb = np.minimum(g[..., 2:], p[..., 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_g = (g[..., 2] - g[..., 0]) * (g[..., 3] - g[..., 1])
+    area_p = (p[..., 2] - p[..., 0]) * (p[..., 3] - p[..., 1])
+    return inter / np.clip(area_g + area_p - inter, 1e-9, None)
+
+
 def batch_to_arrays(batch) -> Dict[str, object]:
     """A ``Batch`` as a dict of its arrays and texts (counterpart of
     dtlr_tpu/train/engine.py:36-43); a dict passes as it is."""
@@ -101,10 +121,12 @@ def detection_weight_dict(cfg, model_cfg: DinoConfig) -> Dict[str, float]:
 class Trainer:
     def __init__(self, cfg: TrainConfig, model_cfg: DinoConfig = FLAGSHIP,
                  output_dir: str = "outputs/finetune", device: str = "cuda",
-                 mode: str = "ctc", seed: int = 0):
+                 mode: str = "ctc", seed: int = 0, charset: Optional[Sequence[str]] = None):
         if mode not in MODES:
             raise ValueError(f"mode is one of {MODES}, got {mode!r}")
         self.cfg = cfg
+        #: the labels' characters, for the training CER (train_epoch)
+        self.charset = charset
         self.model_cfg = model_cfg
         self.mode = mode
         self.output_dir = output_dir
@@ -115,7 +137,11 @@ class Trainer:
         self.step_fn = None
         self.num_classes = 0
         self.weight_dict: Dict[str, float] = {}
-        #: the denoising queries' noise (detection mode), on the device
+        #: the denoising queries' noise (detection mode), on the device,
+        #: seeded anew each epoch with seed + epoch, as JAX's key is
+        #: (dtlr_tpu/train/engine.py:236), so a resumed run draws as an
+        #: uninterrupted one
+        self.seed = seed
         self.cdn_generator = torch.Generator(self.device).manual_seed(seed)
         self.epoch = 0
 
@@ -169,15 +195,26 @@ class Trainer:
             self.state, metrics = self.step_fn(self.state, arrays)
         return metrics
 
-    def train_epoch(self, batches: Iterable, max_iterations: int = -1) -> Dict[str, float]:
+    def train_epoch(self, batches: Iterable, max_iterations: int = -1,
+                    train_cer_every: int = 0) -> Dict[str, float]:
         """Steps over ``batches`` (at most ``max_iterations``); the metrics
         are read back every ``cfg.print_freq`` steps and averaged over
-        those reads."""
+        those reads. ``train_cer_every`` > 0: every that many steps the
+        greedy CER and WER of the step's batch under the updated weights
+        (an eval forward), averaged apart (dtlr_tpu/train/engine.py:268-277;
+        the finetune takes 100)."""
         if self.state is None:
             raise RuntimeError("call build() first")
+        self.cdn_generator.manual_seed(self.seed + self.epoch)
         print_freq = self.cfg.print_freq
         sums: Dict[str, float] = {}
-        reads = 0
+        reads: Dict[str, int] = {}
+
+        def add(values):
+            for k, v in values.items():
+                sums[k] = sums.get(k, 0.0) + v
+                reads[k] = reads.get(k, 0) + 1
+
         t0 = time.time()
         n_it = 0
         for i, batch in enumerate(batches):
@@ -185,21 +222,32 @@ class Trainer:
                 break
             m = self.step(batch)
             n_it += 1
+            if train_cer_every > 0 and i % train_cer_every == 0 and self.charset:
+                add(self.batch_cer(batch))
             if i % print_freq == 0:
                 host = {k: float(m[k]) for k in LOGGED[self.mode]}
-                for k, v in host.items():
-                    sums[k] = sums.get(k, 0.0) + v
-                reads += 1
+                add(host)
                 self.log(f"epoch {self.epoch} it {i}: "
                          + " ".join(f"{k}={v:.4f}" for k, v in host.items()))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.time() - t0
-        stats = {k: v / max(reads, 1) for k, v in sums.items()}
+        stats = {k: v / reads[k] for k, v in sums.items()}
         stats.update(epoch_time=dt, iterations=n_it, it_per_sec=n_it / max(dt, 1e-9))
         self.append_log_line({"epoch": self.epoch, **stats})
         self.epoch += 1
         return stats
+
+    @torch.no_grad()
+    def batch_cer(self, batch) -> Dict[str, float]:
+        """The greedy CER and WER of one batch under the current weights."""
+        arrays = to_device(batch, self.device)
+        out = self.state.model(prep_images(arrays["images"], arrays["valid_hw"]),
+                               arrays["valid_hw"])
+        preds = [labels_to_text(l, self.charset)
+                 for l in greedy_labels(greedy_decode(out["pred_logits"], out["pred_boxes"]))]
+        texts = list(batch_to_arrays(batch)["texts"])
+        return {"cer": metrics.corpus_cer(preds, texts), "wer": metrics.corpus_wer(preds, texts)}
 
     @torch.no_grad()
     def evaluate_detection(self, batches: Iterable) -> Dict[str, float]:
@@ -232,23 +280,44 @@ class Trainer:
         return stats
 
     @torch.no_grad()
-    def evaluate_ctc(self, batches: Iterable, charset: Sequence[str]) -> Dict[str, float]:
-        """Greedy CER (corpus, standardized) and the NMS decode's CER at TH
-        0.3 / NMS 0.5, with the mean CTC loss, over ``batches``; then the
-        greedy WER, or, for a charset without a space (HWDB, the ciphers:
+    def evaluate_ctc(self, batches: Iterable, charset: Sequence[str], use_ema: bool = False,
+                     tag: str = "eval") -> Dict[str, float]:
+        """Read a held-out set as dtlr_tpu/train/engine.py:357-495 does,
+        with the raw weights or (``use_ema``, if the state keeps them) the
+        EMA weights: the greedy CER (corpus, standardized) and the NMS
+        decode's CER at TH 0.3 / NMS 0.5, the mean CTC loss, then the
+        greedy WER or, for a charset without a space (HWDB, the ciphers:
         WER is pinned at 1 there), the NMS decode's AR and CR on the
-        labels, as dtlr_tpu/train/engine.py:372-377,483-489 reports."""
+        labels. The decode's diagnostics: each line's highest sigmoid
+        score (``max_conf`` the largest, ``mean_max_conf`` their mean),
+        ``nq@TH`` the queries per line scoring above TH, and on the first
+        batch ``p_gt_matched``, the mean probability of each target's
+        class at the query whose box overlaps it most. Logged under
+        ``tag``."""
         model = self.state.model
         model.eval()
+        ema = self.state.ema if use_ema else None
+        forward = ((lambda im, vh: torch.func.functional_call(model, ema, (im, vh)))
+                   if ema is not None else model)
         spaceless = " " not in charset
         preds, nms_preds, gts, losses = [], [], [], []
         nms_labels, gt_labels = [], []
-        for batch in batches:
+        max_confs: List[float] = []
+        th_counts = {t: 0 for t in DIAGNOSTIC_TH}
+        n_images = 0
+        p_gt_sum, p_gt_n = 0.0, 0
+        for i, batch in enumerate(batches):
             arrays = to_device(batch, self.device)
-            out = model(prep_images(arrays["images"], arrays["valid_hw"]), arrays["valid_hw"])
+            out = forward(prep_images(arrays["images"], arrays["valid_hw"]), arrays["valid_hw"])
             loss, _ = ctc_loss(out["pred_logits"], out["pred_boxes"], arrays["labels"],
                                arrays["valid"], eps=self.cfg.ctc_eps)
             losses.append(float(loss))
+            logits = out["pred_logits"].float().cpu().numpy()
+            scores = 1.0 / (1.0 + np.exp(-logits.max(-1)))  # (B, Q)
+            max_confs.extend(scores.max(-1).tolist())
+            for t in DIAGNOSTIC_TH:
+                th_counts[t] += int((scores > t).sum())
+            n_images += scores.shape[0]
             frames = greedy_decode(out["pred_logits"], out["pred_boxes"])
             preds += [labels_to_text(l, charset) for l in greedy_labels(frames)]
             nms = nms_decode(out["pred_logits"], out["pred_boxes"], 0.3, 0.5)
@@ -256,18 +325,34 @@ class Trainer:
             nms_labels += [list(l) for l in nms]
             host = batch_to_arrays(batch)
             gts += list(host["texts"])
-            gt_labels += [np.asarray(l)[np.asarray(v, bool)].tolist()
-                          for l, v in zip(host["labels"], host["valid"])]
+            valid = np.asarray(host["valid"], bool)
+            gt_labels += [np.asarray(l)[v].tolist() for l, v in zip(host["labels"], valid)]
+            if i == 0:
+                probs = 1.0 / (1.0 + np.exp(-logits))
+                boxes = out["pred_boxes"].float().cpu().numpy()
+                for b in range(logits.shape[0]):
+                    gt_b = np.asarray(host["boxes"][b], np.float32)[valid[b]]
+                    gt_l = np.asarray(host["labels"][b])[valid[b]]
+                    if len(gt_b) == 0:
+                        continue
+                    best_q = box_iou_cxcywh(gt_b, boxes[b]).argmax(-1)
+                    p_gt_sum += float(probs[b, best_q, gt_l].sum())
+                    p_gt_n += len(gt_l)
         stats = {"cer": metrics.corpus_cer(preds, gts),
                  "nms_cer": metrics.corpus_cer(nms_preds, gts),
                  "loss_CTC": float(np.mean(losses)) if losses else float("nan"),
-                 "n": len(preds)}
+                 "n": len(preds),
+                 "max_conf": float(np.max(max_confs)) if max_confs else 0.0,
+                 "mean_max_conf": float(np.mean(max_confs)) if max_confs else 0.0,
+                 **{f"nq@{t}": round(th_counts[t] / max(n_images, 1), 2) for t in DIAGNOSTIC_TH}}
         if spaceless:
             stats["ar"], stats["cr"] = metrics.ar_cr(nms_labels, gt_labels)
         else:
             stats["wer"] = metrics.corpus_wer(preds, gts)
-        self.log(f"eval: {stats}")
-        self.append_log_line({"epoch": self.epoch, "eval": stats})
+        if p_gt_n:
+            stats["p_gt_matched"] = round(p_gt_sum / p_gt_n, 4)
+        self.log(f"{tag}: {stats}")
+        self.append_log_line({"epoch": self.epoch, tag: stats})
         return stats
 
     # ------------------------------------------------------------ ckpt

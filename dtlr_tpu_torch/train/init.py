@@ -1,0 +1,98 @@
+"""Fresh parameters for a model trained from scratch (counterpart of
+``Trainer.init_params``, dtlr_tpu/train/engine.py:155-182, which takes
+flax's initializers), as the flat ``params/...`` tree in flax layouts
+that ``checkpoints.load_params_npz`` returns, so that a fresh start, a
+warm start (``checkpoints.merge_params_npz``), the class-head surgery and
+``Trainer.build`` all take one form.
+
+Leaf families, by the JAX module that makes each:
+- ``Dense``, ``Conv`` and ``DenseGeneral`` kernels: lecun-normal, a normal
+  of std sqrt(1 / fan_in) truncated at two of its own std (flax's
+  ``variance_scaling(1, "fan_in", "truncated_normal")``). The fan-in is
+  the product of the input axes: a Conv's in-channels times its window;
+  a ``DenseGeneral`` kernel is drawn flattened to (inputs, features), so
+  the attention projections' q/k/v (C, M, D), ``out_proj`` (M, D, C) and
+  the windowed encoder's ``qk`` (C, 2, C) all have fan-in C. In the
+  port's (out, in...) layouts that is the product of every axis but the
+  first.
+- biases zero; GroupNorm and LayerNorm scales one;
+- zero: the windowed encoder's ``mix_up`` and ``mix_down`` kernels
+  (dtlr_tpu/models/windowed_encoder.py:139-141), the box heads' last
+  layer (dtlr_tpu/models/dino.py:80-81), ``ca_box_gamma``
+  (dtlr_tpu/models/transformer.py:219);
+- normal(1): ``level_embed`` and ``tgt_embed`` (transformer.py:309,358)
+  and the CDN label encoder ``label_enc`` (dino.py:202-204);
+- the class heads' biases: the focal prior -log(0.99 / 0.01) (dino.py:61).
+
+The draws come from an explicit ``torch.Generator``, leaf by leaf in the
+model's parameter order; the model is built on the meta device, so
+nothing is initialized twice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..models.dino import DINO, DinoConfig
+from .checkpoints import params_to_flax
+
+#: flax's truncated_normal std correction: the std of a unit normal
+#: truncated at +-2
+TRUNCATED_STD = 0.87962566103423978
+FOCAL_PRIOR = -math.log((1 - 0.01) / 0.01)
+#: parameters that start at zero, by a part of their name
+ZERO = ("mix_up.weight", "mix_down.weight", "bbox_embed.layers_2.", "ca_box_gamma")
+#: parameters drawn from normal(1), by their last name
+UNIT_NORMAL = ("level_embed", "tgt_embed", "label_enc")
+
+
+def family(name: str, ndim: int) -> str:
+    """The initializer family of a port parameter: ``zero``, ``normal``,
+    ``prior``, ``one`` or ``lecun``."""
+    leaf = name.rsplit(".", 1)[-1]
+    if any(z in name for z in ZERO):
+        return "zero"
+    if leaf in UNIT_NORMAL:
+        return "normal"
+    if name.endswith("class_embed.fc.bias"):
+        return "prior"
+    if leaf == "bias":
+        return "zero"
+    if ndim == 1:  # a norm's scale
+        return "one"
+    return "lecun"
+
+
+def lecun_std(shape) -> float:
+    """The untruncated std of a lecun-normal draw for a port weight of
+    ``shape`` ((out, in) or (out, in, kh, kw))."""
+    return math.sqrt(1.0 / int(np.prod(shape[1:]))) / TRUNCATED_STD
+
+
+def draw(name: str, shape, gen: torch.Generator) -> torch.Tensor:
+    kind = family(name, len(shape))
+    if kind == "zero":
+        return torch.zeros(shape)
+    if kind == "one":
+        return torch.ones(shape)
+    if kind == "prior":
+        return torch.full(shape, FOCAL_PRIOR)
+    if kind == "normal":
+        return torch.randn(shape, generator=gen)
+    std = lecun_std(shape)
+    return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std,
+                                       generator=gen)
+
+
+def init_params(model_cfg: DinoConfig, num_classes: int,
+                gen: torch.Generator) -> Dict[str, np.ndarray]:
+    """Fresh float32 parameters of the model of ``model_cfg`` with
+    ``num_classes`` classes (its label encoder sized by
+    ``model_cfg.dn_labelbook_size``), as a flat ``params/...`` tree."""
+    with torch.device("meta"):
+        shapes = {n: tuple(p.shape) for n, p in DINO(model_cfg, num_classes).named_parameters()}
+    return params_to_flax({n: draw(n, s, gen) for n, s in shapes.items()})

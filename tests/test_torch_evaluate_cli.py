@@ -14,6 +14,12 @@ eval forward is deterministic. JAX's batchers are recorded and stopped.
   sweep around one TH, one point and the greedy decode: the same
   records, skipped points, best point and files. Exactly, but ``detections.json``, whose scores and boxes
   come from two sigmoids: within 1e-6.
+- ``test_hwdb_stream_with_a_runs_config``: as (a), on the HWDB_synth
+  lines that both CLIs draw from the fixture glyph bank (seed 321 +
+  ``--eval_seed``), with a training run's dumped ``config_cfg.py`` as
+  ``--config`` (Chinese_TPU.py and scripts/hwdb_real.sh's options), in
+  the ``chinese`` metric mode at hwdb_real.sh's point: the same records
+  and files, exactly.
 - (b) ``test_cli_end_to_end_tiny``: the CLI end to end at ``TINY`` on
   weights exported from the JAX model, over the lines JAX's synthetic
   eval set draws (seed 123), written to an npz as ``synthetic_lines``
@@ -252,6 +258,42 @@ def test_weights_from_a_train_state(tmp_path):
         TE.load_weights(None, str(tmp_path / "c"), ema=False)
     with pytest.raises(ValueError, match="EMA"):
         TE.load_weights(str(tmp_path / "p.npz"), None, ema=True)
+
+
+@pytest.mark.parametrize("eval_seed", [0, 2])
+def test_hwdb_stream_with_a_runs_config(monkeypatch, tmp_path, capsys, eval_seed):
+    from dtlr_tpu_torch.config import load_config, parse_options
+    from dtlr_tpu_torch.config.loader import apply_options
+    from dtlr_tpu_torch.train.config import dump_run_config, from_config
+    from test_torch_hwdb_synth import CONFIG, HWDB_OPTIONS, bank_chars, bank_root
+
+    root = bank_root(tmp_path / "data")
+    n = len(bank_chars())
+    cfg = apply_options(load_config(CONFIG), parse_options(HWDB_OPTIONS))
+    train_cfg, model_cfg, _ = from_config(cfg, "pretrain")
+    run_cfg = str(tmp_path / "run" / "config_cfg.py")
+    dump_run_config(run_cfg, cfg, train_cfg, model_cfg, n, n)
+    forward = seeded_forward(n)
+    common = ["--dataset", "HWDB_synth", "--data_root", root, "--config", run_cfg,
+              "--metrics", "chinese", "--TH", "0.2", "--NMS", "0.5", "--max_images", "6",
+              "--batch_size", "4", "--eval_seed", str(eval_seed)]
+    want_records, _ = run_jax_evaluate(
+        monkeypatch, forward, ["--mode", "val", "--ckpt_dir", str(tmp_path / "jax"), *common])
+    jax_printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    monkeypatch.setattr(TE, "load_weights", lambda *a: {
+        "params/class_embed/fc/kernel": np.zeros((1, n), np.float32)})
+    models = []
+    monkeypatch.setattr(TE, "model_from_tree", lambda tree, cfg, device: models.append(cfg))
+    monkeypatch.setattr(TE, "forward_lines", port_forward_from(forward))
+    res = TE.main(["--ckpt_dir", str(tmp_path / "run"), "--device", "cpu", *common])
+    port_printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["records"] == want_records and len(want_records) == 1
+    assert port_printed == jax_printed and {"AR", "CR"} <= set(port_printed)
+    assert res["lines"] == 4  # the last, partial batch is dropped, as JAX drops it
+    assert models == [model_cfg]  # the run's geometry and bfloat16
+    assert read_files(tmp_path / "run" / "stats_dect" / "HWDB_synth") == read_files(
+        tmp_path / "jax" / "stats_dect" / "HWDB_synth")
 
 
 # ----------------------------------------------------------------- (b)

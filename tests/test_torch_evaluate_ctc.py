@@ -5,11 +5,12 @@ own decode, metrics and CTC loss.
 
 For a charset without a space (HWDB, the ciphers) both report AR and CR
 of the NMS decode and no WER (dtlr_tpu/train/engine.py:372-377,483-489);
-with a space, the greedy WER. Every key the port reports is JAX's, with
-JAX's value: the metrics exactly, the CTC loss within 1e-5 relative
-(two float32 CTC implementations). JAX's report has, besides, the
-decode diagnostics that the port does not compute yet (ROADMAP.md,
-Queue 1 item 7).
+with a space, the greedy WER. Both report the decode's diagnostics
+(``max_conf``, ``mean_max_conf``, ``nq@TH``, ``p_gt_matched``). The
+port reports JAX's keys, with JAX's values: the metrics and diagnostics
+exactly, the CTC loss within 1e-5 relative (two float32 CTC
+implementations). With ``use_ema`` both read the EMA weights: here the
+stand-in model's outputs under its EMA weight, which halves the logits.
 """
 
 import types
@@ -28,9 +29,10 @@ from dtlr_tpu_torch.train.config import RECIPE
 from dtlr_tpu_torch.train.engine import Trainer
 
 NQ, N_LABELS, B, N_BATCHES = 24, 6, 2, 2
-#: what JAX's report has besides the port's
-JAX_DIAGNOSTICS = {"max_conf", "mean_max_conf", "nq@0.05", "nq@0.1", "nq@0.2", "nq@0.3",
-                   "p_gt_matched"}
+DIAGNOSTICS = {"max_conf", "mean_max_conf", "nq@0.05", "nq@0.1", "nq@0.2", "nq@0.3",
+               "p_gt_matched"}
+#: the stand-in model's weight: its raw value and its EMA value
+RAW, EMA = 1.0, 0.5
 CHARSETS = {"spaceless": list("abcdefghijklmnopqrst"),
             "with_space": list("abcdefghijklmnopqrs ")}
 
@@ -55,19 +57,24 @@ def outputs_and_batches(charset, seed=0):
         for b in range(B):
             for n in np.flatnonzero(valid[b]):
                 logits[b, 4 * n, labels[b, n]] = 4.0
+        # the targets' boxes: near every fourth query's, so that the
+        # best-overlapping query of each is one of them
+        gt_boxes = boxes[:, ::4][:, :N_LABELS] + rng.normal(0, 0.005, (B, N_LABELS, 4))
         fields = dict(images=np.zeros((B, 8, 16, 3), np.uint8),
                       valid_hw=np.asarray([[8, 16], [8, 12]], np.int32), labels=labels,
-                      boxes=boxes[:, :N_LABELS].copy(), valid=valid, texts=texts)
+                      boxes=gt_boxes.astype(np.float32), valid=valid, texts=texts)
         out.append(((logits, boxes), fields))
     return out
 
 
-def jax_report(data, charset, tmp_path):
-    """JAX's evaluate_ctc with the outputs in place of its model."""
+def jax_report(data, charset, tmp_path, use_ema=False):
+    """JAX's evaluate_ctc with the outputs in place of its model, scaled by
+    the weight it is given."""
     calls = iter(data)
 
     def eval_fn(params, arrays):
         (logits, boxes), fields = next(calls)
+        logits = logits * params["w"]
         loss, _ = jax_ctc_loss(jnp.asarray(logits), jnp.asarray(boxes),
                                jnp.asarray(fields["labels"]), jnp.asarray(fields["valid"]),
                                eps=RECIPE.ctc_eps)
@@ -75,44 +82,61 @@ def jax_report(data, charset, tmp_path):
 
     trainer = types.SimpleNamespace(
         _eval_fn=eval_fn, mesh=None, output_dir=str(tmp_path / "jax"), epoch=0,
-        state=types.SimpleNamespace(params={}, ema_params=None),
+        state=types.SimpleNamespace(params={"w": np.float32(RAW)},
+                                    ema_params={"w": np.float32(EMA)}),
         logger=types.SimpleNamespace(info=lambda msg: None))
     batches = [JaxBatch(**fields) for _, fields in data]
-    return jax_engine.Trainer.evaluate_ctc(trainer, batches, charset, snapshot=False)
+    return jax_engine.Trainer.evaluate_ctc(trainer, batches, charset, snapshot=False,
+                                           use_ema=use_ema, tag="eval_ema" if use_ema else "eval")
 
 
-def port_report(data, charset, tmp_path):
-    """The port's evaluate_ctc with the outputs in place of its model."""
+def port_report(data, charset, tmp_path, use_ema=False):
+    """The port's evaluate_ctc with the outputs in place of its model,
+    scaled by its weight ``w`` (raw or EMA)."""
     calls = iter(data)
 
     class Outputs(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.tensor(RAW))
+
         def forward(self, images, valid_hw):
             (logits, boxes), _ = next(calls)
-            return {"pred_logits": torch.from_numpy(logits), "pred_boxes": torch.from_numpy(boxes)}
+            return {"pred_logits": torch.from_numpy(logits) * self.w,
+                    "pred_boxes": torch.from_numpy(boxes)}
 
+    logged = []
     trainer = types.SimpleNamespace(
-        state=types.SimpleNamespace(model=Outputs()), device=torch.device("cpu"), cfg=RECIPE,
-        epoch=0, log=lambda msg: None, append_log_line=lambda record: None)
+        state=types.SimpleNamespace(model=Outputs(), ema={"w": torch.tensor(EMA)}),
+        device=torch.device("cpu"), cfg=RECIPE, epoch=0, log=lambda msg: None,
+        append_log_line=logged.append)
     batches = [Batch(**fields) for _, fields in data]
-    return Trainer.evaluate_ctc(trainer, batches, charset)
+    stats = Trainer.evaluate_ctc(trainer, batches, charset, use_ema=use_ema,
+                                 tag="eval_ema" if use_ema else "eval")
+    assert logged == [{"epoch": 0, "eval_ema" if use_ema else "eval": stats}]
+    return stats
 
 
+@pytest.mark.parametrize("use_ema", [False, True], ids=["raw", "ema"])
 @pytest.mark.parametrize("name", list(CHARSETS))
-def test_evaluate_ctc_reports_as_jax(name, tmp_path, monkeypatch):
+def test_evaluate_ctc_reports_as_jax(name, use_ema, tmp_path, monkeypatch):
     charset = CHARSETS[name]
     data = outputs_and_batches(charset)
     monkeypatch.setattr(jax_engine, "shard_batch", lambda mesh, arrays: arrays)
-    want = jax_report(data, charset, tmp_path)
-    got = port_report(data, charset, tmp_path)
+    want = jax_report(data, charset, tmp_path, use_ema)
+    got = port_report(data, charset, tmp_path, use_ema)
     spaceless = " " not in charset
     assert ({"ar", "cr"} <= set(got)) == spaceless and ("wer" in got) != spaceless
-    assert set(want) - set(got) == JAX_DIAGNOSTICS
-    assert set(got) <= set(want)
+    assert DIAGNOSTICS <= set(got) and list(got) == list(want)
     for k, v in got.items():
         if k == "loss_CTC":
             assert abs(v - want[k]) <= 1e-5 * abs(want[k]), (k, v, want[k])
         else:
             assert v == pytest.approx(want[k], rel=0, abs=1e-12), (k, v, want[k])
-    # the NMS decode reads most characters, so AR and CR are not trivial
-    if spaceless:
+    # the NMS decode reads most characters, so AR and CR are not trivial;
+    # the EMA weight halves the logits, which moves the diagnostics
+    if spaceless and not use_ema:
         assert got["cr"] > 0.5 and got["nms_cer"] < 1
+    assert 0 < got["p_gt_matched"] < 1 and got["nq@0.05"] > 0
+    if use_ema:
+        assert got["max_conf"] < port_report(data, charset, tmp_path)["max_conf"]
