@@ -113,6 +113,33 @@ Phases, each printing one JSON line with its seconds:
            attention launches against the count its steps and evaluations
            must make, its ms per step (host clock around each step, the
            card synchronized) and its peak memory
+  deform   the reference-faithful path, configs/Latin.py's model (deformable
+           encoder and cross-attention, FrozenBN ResNet-50) at full width
+           with weights drawn by ``deform_weights`` from a frozen numpy
+           stream: (a) it reads the eight fixture lines in fp32, in the
+           recipe's bf16 and in fp32 with deform_shared_offsets, each against
+           the JAX package's reading of the same weights
+           (dtlr_tpu_torch/assets/smoke_deform_ref.npz, written by
+           tests/test_torch_deform_fixture.py): per query boxes and max
+           logits where the two-stage selection is JAX's, a swapped slot
+           only between scores within SWAP_GAP_TOL, the strings on the
+           lines whose selection is JAX's (fp32), the strings within twice
+           JAX's own bf16-to-fp32 spread (bf16); 6 ``mha`` launches and no
+           other per forward; lines/s, peak memory and the sampling core's
+           ms per encoder and decoder layer beside its bytes bound; (b) the
+           weights through a reference-named .pth (torch_import) into a
+           fresh model, which must read the lines bit for bit alike; (c)
+           python -m dtlr_tpu_torch.train.pretrain -c configs/Latin.py from
+           scratch on the detection fixture with round4_chain.sh's data
+           options, 2 epochs of 2 steps with CDN (finite losses, none
+           skipped, ``mha_masked`` per step and ``mha`` per evaluation, every
+           FrozenBN leaf of the parameters and the EMA its fresh value bit
+           for bit); (d) train.finetune -c configs/Latin_CTC.py from (c)'s
+           run with --new_class_embedding --smart_mapping, 2 steps, and
+           eval.evaluate --config configs/Latin_CTC.py --NMS 0.5 --TH 0.3 on
+           its weights (scripts/finetuning/IAM.sh, scripts/evaluating/IAM.sh);
+           (e) train.pretrain -c configs/Chinese.py on the committed HWDB
+           bank, 2 steps without CDN (scripts/pretraining/Synthetic_chinese.sh)
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel (the attention
 in bf16 and, as ``*_fp32``, in fp32, at each dtype's path), the card's name
@@ -1686,6 +1713,358 @@ def phase_pretrain(card):
     return records
 
 
+# the deform phase: the reference's architecture (configs/Latin.py) from
+# weights drawn by ``deform_weights``, held against the JAX package's
+# reading of the fixture lines with the same weights
+# (tests/test_torch_deform_fixture.py writes DEFORM_REF)
+DEFORM_CONFIG = os.path.join(CONFIGS, "Latin.py")
+DEFORM_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_deform_ref.npz")
+DEFORM_SEED = 2024
+#: the readings held against DEFORM_REF: (prefix, compute dtype, shared offsets)
+DEFORM_VARIANTS = (("fp32", "float32", False), ("bf16", "bfloat16", False),
+                   ("shared_fp32", "float32", True))
+# round4_chain.sh's data options (ROUND4_OPTIONS less the architecture's)
+DEFORM_DATA_OPTIONS = ["batch_size=8", "use_ema=True", "max_targets=64",
+                       "data_aug_scales=[128]", "data_aug_max_size=1024", "image_w_max=1024",
+                       "image_h_max=192", "eval_set_size=200"]
+
+
+def deform_config(compute_dtype="float32", shared_offsets=False):
+    """configs/Latin.py's model (hidden 256, 8 heads, 6 + 6 layers, 900
+    queries, 4 levels x 4 points, deformable encoder and cross-attention,
+    FrozenBN ResNet-50) at ``compute_dtype``."""
+    from dtlr_tpu_torch.train.config import load_settings
+
+    _, cfg, _, _ = load_settings(DEFORM_CONFIG, [], "pretrain")
+    return dataclasses.replace(cfg, compute_dtype=compute_dtype, shared_offsets=shared_offsets)
+
+
+def deform_weights(model_cfg, num_classes, seed=DEFORM_SEED):
+    """Weights of ``model_cfg``'s model with ``num_classes`` classes (label
+    book num_classes + 1) from one frozen numpy stream
+    (``np.random.RandomState(seed)``), leaf by leaf in sorted key order,
+    as a flat ``params/...`` tree in flax layouts. No leaf is zero:
+    kernels normal(0, 1 / sqrt(fan_in)) (the class heads' 4 times that,
+    so that their logits seldom tie), norm scales 1 + normal(0, 0.1),
+    biases normal(0, 0.02), the sampling offsets' bias normal(0, 2)
+    pixels, the embeddings normal(0, 1), and FrozenBN statistics that are
+    not the identity (scale 1 + normal(0, 0.1), bias and mean normal(0,
+    0.1), var uniform(0.5, 1.5))."""
+    from dtlr_tpu_torch.train.torch_import import template
+
+    cfg = dataclasses.replace(model_cfg, dn_labelbook_size=num_classes + 1)
+    shapes = {k: v.shape for k, v in template(cfg, num_classes).items()}
+    rng = np.random.RandomState(seed)
+    tree = {}
+    for key in sorted(shapes):
+        shape, leaf = shapes[key], key.rsplit("/", 1)[-1]
+        if leaf == "kernel":
+            fan_in = (shape[0] if len(shape) == 3 and "/out_proj/" not in key
+                      else int(np.prod(shape[:-1])))
+            x = rng.normal(0.0, (4.0 if "class_embed" in key else 1.0) / math.sqrt(fan_in),
+                           shape)
+        elif "FrozenBatchNorm" in key:
+            x = (rng.uniform(0.5, 1.5, shape) if leaf == "var"
+                 else (leaf == "scale") + rng.normal(0.0, 0.1, shape))
+        elif leaf == "scale":
+            x = 1.0 + rng.normal(0.0, 0.1, shape)
+        elif leaf == "bias":
+            x = rng.normal(0.0, 2.0 if "sampling_offsets" in key else 0.02, shape)
+        else:  # level_embed, tgt_embed, label_enc
+            x = rng.normal(0.0, 1.0, shape)
+        tree[key] = x.astype(np.float32)
+    return tree
+
+
+def tree_sha256(tree) -> str:
+    """sha256 over a flat tree's sorted keys, shapes and float32 bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        h.update(k.encode())
+        h.update(str(np.shape(tree[k])).encode())
+        h.update(np.ascontiguousarray(tree[k], np.float32).tobytes())
+    return h.hexdigest()
+
+
+def deform_reference(ref, prefix):
+    """One of DEFORM_REF's readings in ``agreement``'s ``jax_*`` names."""
+    out = {}
+    for k in ("greedy", "nms", "pred_boxes", "max_logit", "anchors", "interm_max_logit"):
+        v = ref[f"{prefix}_{k}"]
+        out[f"jax_{k}"] = [str(s) for s in v] if v.dtype.kind == "U" else v
+    return out
+
+
+def capture_sampler_inputs(model, images, valid_hw):
+    """The sampling core's function and inputs at its first encoder call
+    and its first decoder call of one forward (copies on the card)."""
+    from dtlr_tpu_torch.eval.evaluate import forward_lines
+    from dtlr_tpu_torch.models import layers
+
+    seen, orig = {}, {n: getattr(layers, n) for n in ("deform_attn", "deform_attn_shared")}
+
+    def spy(name):
+        def core(value, shapes, loc, attn, *rest):
+            where = "encoder" if loc.shape[1] == value.shape[1] else "decoder"
+            seen.setdefault(where, (orig[name], (value.detach().clone(), shapes,
+                                                 loc.detach().clone(), attn.detach().clone(),
+                                                 *rest)))
+            return orig[name](value, shapes, loc, attn, *rest)
+        return core
+
+    for name in orig:
+        setattr(layers, name, spy(name))
+    try:
+        forward_lines(model, images, valid_hw)
+    finally:
+        for name, fn in orig.items():
+            setattr(layers, name, fn)
+    return seen
+
+
+def sampler_bytes(value, loc, attn):
+    """The bytes the core must move: each input read once, the float32
+    (B, Lq, C) output written once."""
+    out = loc.shape[0] * loc.shape[1] * value[0, 0].numel() * 4
+    return sum(t.numel() * t.element_size() for t in (value, loc, attn)) + out
+
+
+def deform_read(card, variant, compute_dtype, shared, lines, ref, num_classes):
+    """One reading of the fixture lines by Latin.py's model (see the
+    module docstring): agreement with JAX's reading ``variant`` of
+    DEFORM_REF, the launches per forward, lines/s, peak memory and the
+    sampling core's ms per layer."""
+    from dtlr_tpu_torch.eval import metrics
+    from dtlr_tpu_torch.eval.evaluate import (agreement, forward_lines, model_from_tree,
+                                              read_lines)
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+
+    cfg = deform_config(compute_dtype, shared)
+    tree = deform_weights(cfg, num_classes)
+    digest = tree_sha256(tree)
+    if digest != str(ref[f"{variant}_weights_sha256"]):
+        raise AssertionError(f"{variant}: the seeded weights hash {digest}, the reference "
+                             f"was read with {ref[f'{variant}_weights_sha256']}")
+    model = model_from_tree(tree, cfg, "cuda")
+    th, nms = (float(x) for x in lines["nms_point"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = read_lines(model, lines, th, nms, batch_size=len(lines["images"]))
+    torch.cuda.synchronize()
+    launches = dict(flash_mha.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_dec = cfg.dec_layers
+    jax_ref = deform_reference(ref, variant)
+    agree = agreement(res, jax_ref)
+    record = {"phase": "deform", "part": "read", "variant": variant,
+              "compute_dtype": compute_dtype, "shared_offsets": shared,
+              "launches_per_forward": launches, **agree,
+              "greedy_lengths": [len(s) for s in res["greedy"]],
+              "jax_greedy_lengths": [len(s) for s in jax_ref["jax_greedy"]],
+              "nms_lengths": [len(s) for s in res["nms"]],
+              "finite": all(np.isfinite(res[k]).all() for k in ("pred_boxes", "max_logit"))}
+    if compute_dtype == "float32":
+        # random weights read every query as a character (900-character
+        # greedy strings) from near-tied logits, so a swapped proposal
+        # moves its line's strings by more than a trained model's: the
+        # strings are held on the lines whose selection is JAX's, the
+        # swapped lines by their score gap
+        same = (np.abs(res["anchors"] - jax_ref["jax_anchors"]).max(-1) < 1e-6).all(-1)
+        cer_same = {k: metrics.mean_cer([s for s, m in zip(res[k], same) if m],
+                                        [s for s, m in zip(jax_ref[f"jax_{k}"], same) if m])
+                    for k in ("greedy", "nms")} if same.any() else None
+        record.update(box_tol=BOX_TOL, logit_tol=MAX_LOGIT_TOL, swap_gap_tol=SWAP_GAP_TOL,
+                      cer_tol=CER_VS_JAX, cer_vs_ref_same_selection=cer_same)
+        ok = (agree["lines_compared"] >= 1 and agree["max_pred_boxes_err"] <= BOX_TOL
+              and agree["max_logit_err"] <= MAX_LOGIT_TOL
+              and agree["max_swap_score_gap"] <= SWAP_GAP_TOL
+              and max(cer_same.values()) <= CER_VS_JAX)
+    else:
+        # JAX's own fp32-to-bf16 spread of these strings, from DEFORM_REF
+        spread = {k: float(ref[f"jax_bf16_vs_fp32_cer_{k}"]) for k in ("greedy", "nms")}
+        tol = {k: max(CER_VS_JAX_BF16, 2 * spread[k]) for k in spread}
+        record.update(jax_bf16_vs_fp32_cer=spread, cer_tol=tol,
+                      swap_gap_tol=SWAP_GAP_TOL_BF16)
+        ok = (all(agree["cer_vs_ref"][k] <= tol[k] for k in tol)
+              and agree["max_swap_score_gap"] <= SWAP_GAP_TOL_BF16)
+    ok = ok and record["finite"] and launches == {"mha_box": 0, "mha": n_dec, "mha_masked": 0}
+    if not ok:
+        emit({**record, "failed": True})
+        raise AssertionError(f"deform {variant}: the port's reading disagrees with the JAX "
+                             "package's, or launched other kernels")
+
+    images, valid_hw = lines["images"], lines["valid_hw"]
+    fwd_ms = cuda_ms(lambda: forward_lines(model, images, valid_hw), calls=1, runs=5,
+                     warmup=2)
+    sampler = {}
+    for where, (core, args) in capture_sampler_inputs(model, images, valid_hw).items():
+        value, _, loc, attn = args[:4]
+        ms = cuda_ms(lambda: core(*args), calls=5, runs=5, warmup=1)
+        sampler[where] = {"ms_per_layer": ms, "Lq": loc.shape[1], "S": value.shape[1],
+                          "bytes_bound_ms": sampler_bytes(value, loc, attn) / MEM_BYTES_PER_S
+                          * 1e3}
+    record.update(forward_ms_per_batch=fwd_ms, batch=len(images),
+                  lines_per_s=len(images) / (fwd_ms / 1e3), peak_memory_bytes=peak,
+                  sampler=sampler, card=card)
+    return record, res, tree, model
+
+
+def frozen_equal_to_fresh(state: dict) -> bool:
+    """Every FrozenBN leaf of a train state's parameters and EMA is its
+    fresh value, bit for bit: scale and var one, bias and mean zero."""
+    ok = True
+    for key in ("params", "ema_params"):
+        for name, t in (state.get(key) or {}).items():
+            if "FrozenBatchNorm" in name:
+                want = 1.0 if name.endswith((".weight", ".var")) else 0.0
+                ok = ok and bool(torch.equal(t.cpu(), torch.full_like(t.cpu(), want)))
+    return ok and state.get("ema_params") is not None
+
+
+def phase_deform(card):
+    """The reference-faithful path (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from dtlr_tpu_torch.eval import evaluate
+    from dtlr_tpu_torch.eval.evaluate import load_lines, model_from_tree, read_lines
+    from dtlr_tpu_torch.train import checkpoints as ckpt_lib
+    from dtlr_tpu_torch.train import finetune, pretrain
+    from dtlr_tpu_torch.train.config import load_settings
+    from dtlr_tpu_torch.train.torch_import import load_params_file, save_torch_checkpoint
+
+    lines = load_lines(LINES)
+    num_classes = len(lines["charset"])
+    n_dec = deform_config().dec_layers
+    records, launches = [], {}
+    with np.load(DEFORM_REF) as npz:
+        ref = {k: npz[k] for k in npz.files}
+
+    # (a) the forward against JAX's reading, fp32, bf16 and shared offsets
+    for variant, compute_dtype, shared in DEFORM_VARIANTS:
+        t0 = time.perf_counter()
+        record, res, tree, model = deform_read(card, variant, compute_dtype, shared, lines,
+                                               ref, num_classes)
+        launches[variant] = record["launches_per_forward"]
+        record["seconds"] = time.perf_counter() - t0
+        emit(record)
+        records.append(record)
+        if variant == "fp32":
+            fp32 = (res, tree)
+        del model
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        # (b) the weights through a reference-named .pth into a fresh model
+        t0 = time.perf_counter()
+        res, tree = fp32
+        pth = os.path.join(workdir, "reference.pth")
+        cfg = deform_config("float32")
+        save_torch_checkpoint(tree, pth, cfg.nheads)
+        loaded = load_params_file(pth, cfg)
+        model = model_from_tree(loaded, cfg, "cuda")
+        th, nms = (float(x) for x in lines["nms_point"])
+        again = read_lines(model, lines, th, nms, batch_size=len(lines["images"]))
+        record = {"phase": "deform", "part": "pth_round_trip", "bytes": os.path.getsize(pth),
+                  "tree_equal": set(loaded) == set(tree)
+                  and all(np.array_equal(loaded[k], tree[k]) for k in tree),
+                  "outputs_equal": all(np.array_equal(again[k], res[k]) for k in
+                                       ("pred_boxes", "max_logit", "anchors"))
+                  and again["greedy"] == res["greedy"] and again["nms"] == res["nms"],
+                  "seconds": time.perf_counter() - t0}
+        emit(record)
+        records.append(record)
+        del model
+        torch.cuda.empty_cache()
+        if not (record["tree_equal"] and record["outputs_equal"]):
+            raise AssertionError("deform: the .pth round trip does not read the lines alike")
+
+        # (c) pretraining Latin.py from scratch, with CDN
+        c_dir = os.path.join(workdir, "latin")
+
+        def pretrain_launches(res, steps):
+            n_eval = eval_forwards(res)  # the fixture's 8 lines, batch 8
+            return {"mha_box": 0, "mha": n_dec * n_eval, "mha_masked": n_dec * steps}
+
+        res, _, rec = sub_run("deform_latin_scratch", lambda: pretrain.main(
+            ["-c", DEFORM_CONFIG, "--lines", DETECT_LINES, "--seed", "0", "--output_dir", c_dir,
+             "--epochs", "2", "--steps_per_epoch", "2", "--eval_every", "1",
+             "--options", *DEFORM_DATA_OPTIONS]), pretrain_launches)
+        state = ckpt_lib.restore_checkpoint(os.path.join(c_dir, "checkpoint"))
+        losses = [ep["train"]["loss"] for ep in res["epochs"]] + [res["eval"]["loss"]]
+        rec.update(phase="deform", train=[ep["train"] for ep in res["epochs"]],
+                   detection_eval=res["eval"], frozen_unchanged=frozen_equal_to_fresh(state),
+                   card=card)
+        rec["ok"] = (rec["ok"] and rec["steps"] == 4 and all(math.isfinite(x) for x in losses)
+                     and all(ep["train"].get("skipped", 0) == 0 for ep in res["epochs"])
+                     and rec["frozen_unchanged"] and state["step"] == 4)
+        records.append(rec)
+        emit(rec)
+
+        # (d) the CTC finetune from (c)'s run and evaluate, as
+        # scripts/finetuning/IAM.sh and scripts/evaluating/IAM.sh
+        ctc_cfg = os.path.join(CONFIGS, "Latin_CTC.py")
+        batch = load_settings(ctc_cfg, [], "ctc")[0].batch_size
+        eval_batches = -(-len(lines["images"]) // batch)
+        d_dir = os.path.join(workdir, "latin_ctc")
+
+        def finetune_launches(res, steps):
+            n_eval = 1 + eval_batches  # the first step's training CER, the held-out set
+            return {"mha_box": 0, "mha": n_dec * (steps + n_eval), "mha_masked": 0}
+
+        res, _, rec = sub_run("deform_ctc_finetune", lambda: finetune.main(
+            ["-c", ctc_cfg, "--lines", LINES, "--pretrain_dir", c_dir, "--new_class_embedding",
+             "--smart_mapping", "--output_dir", d_dir, "--epochs", "1", "--seed", "11",
+             "--options", "max_iterations=2", "eval_epoch=1"]), finetune_launches)
+        rec.update(phase="deform", train=res["train"], eval=res["eval"], card=card)
+        rec["ok"] = (rec["ok"] and rec["steps"] == 2 and math.isfinite(res["train"]["loss_CTC"])
+                     and math.isfinite(res["eval"]["loss_CTC"]))
+        records.append(rec)
+        emit(rec)
+
+        res, _, rec = sub_run("deform_evaluate", lambda: evaluate.main(
+            ["--config", ctc_cfg, "--ckpt_dir", d_dir, "--lines", LINES, "--NMS", "0.5",
+             "--TH", "0.3"]), lambda res, steps: {"mha_box": 0, "mha": n_dec, "mha_masked": 0})
+        best = res["best"]["record"]
+        rec.update(phase="deform", best=best, lines=res["lines"],
+                   lines_per_s=res["lines_per_s"], card=card)
+        rec["ok"] = rec["ok"] and res["lines"] == 8 and math.isfinite(best["CER"])
+        records.append(rec)
+        emit(rec)
+
+        # (e) Chinese.py on the HWDB stream of the committed bank, as
+        # scripts/pretraining/Synthetic_chinese.sh (no CDN)
+        with open(HWDB_REF) as fh:
+            hwdb_ref = json.load(fh)
+        root = os.path.join(workdir, "hwdb")
+        os.makedirs(os.path.join(root, "HWDB_gnt"))
+        shutil.copy(HWDB_BANK, os.path.join(root, "HWDB_gnt", "smoke_hwdb.gnt"))
+        res, _, rec = sub_run("deform_hwdb_pretrain", lambda: pretrain.main(
+            ["-c", os.path.join(CONFIGS, "Chinese.py"), "--dataset_file", "HWDB_synth",
+             "--data_root", root, "--output_dir", os.path.join(workdir, "hwdb_run"),
+             "--epochs", "1", "--steps_per_epoch", "2", "--eval_every", "100",
+             "--seed", str(hwdb_ref["seed"]), "--options", *hwdb_ref["options"]]),
+            lambda res, steps: {"mha_box": 0, "mha": n_dec * (steps + 2 * ("eval" in res)),
+                                "mha_masked": 0})
+        rec.update(phase="deform", train=res["train"], detection_eval=res["eval"],
+                   num_classes=res["num_classes"], card=card)
+        rec["ok"] = (rec["ok"] and rec["steps"] == 2 and math.isfinite(res["train"]["loss"])
+                     and res["train"].get("skipped", 0) == 0)
+        records.append(rec)
+        emit(rec)
+    failed = [r.get("run", r.get("variant", r.get("part"))) for r in records
+              if r.get("ok") is False]
+    if failed:
+        raise AssertionError(f"deform phase checks failed: {failed}")
+    for r in records:
+        if "run" in r:
+            launches[r["run"]] = r["launches"]
+    return records, launches
+
+
 def image_sha256(images) -> str:
     import hashlib
 
@@ -1912,6 +2291,12 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    deform_records, deform_launches = phase_deform(card)
+    emit({"phase": "deform", "parts": [r.get("run", r.get("variant", r.get("part")))
+                                       for r in deform_records],
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
           "seconds": time.perf_counter() - t0})
@@ -1948,11 +2333,17 @@ def main() -> int:
                           "sweep_bf16_90_points": sweep_launches["bfloat16"],
                           "ctc_train_bf16_12_steps": train_launches,
                           "detect_bf16_12_steps": detect_launches,
-                          **{f"pretrain_{r['run']}": r["launches"] for r in pretrain_records}},
+                          **{f"pretrain_{r['run']}": r["launches"] for r in pretrain_records},
+                          "deform_read_bf16_forward": deform_launches["bf16"],
+                          **{run: deform_launches[run] for run in
+                             ("deform_latin_scratch", "deform_ctc_finetune", "deform_evaluate",
+                              "deform_hwdb_pretrain")}},
              "float32": {"read_fp32_forward": launches["float32"],
                          "sweep_fp32_90_points": sweep_launches["float32"],
                          "ctc_train_fp32_first_step": train_fp32,
-                         "detect_fp32_first_step": detect_fp32}}
+                         "detect_fp32_first_step": detect_fp32,
+                         "deform_read_fp32_forward": deform_launches["fp32"],
+                         "deform_read_shared_fp32_forward": deform_launches["shared_fp32"]}}
     by_path = {name + suffix: {path: counts[name] for path, counts in paths[dt].items()}
                for name in flash_attn.KERNELS
                for suffix, dt in (("", "bfloat16"), ("_fp32", "float32"))}

@@ -2,10 +2,11 @@
 
 Its layout mirrors ``dtlr_tpu/``: ``models/`` (the DINO detector),
 ``ops/`` (pixels, the box-prior attention kernel and its plain version,
-the CTC loss and blank synthesis, NMS, the matcher), ``eval/`` (decode,
-metrics, the evaluate entry point and its sweep), ``train/`` (optimizer,
-train steps, checkpoints, the trainer and the finetune and pretrain
-entry points, the fresh initialization), ``data/`` (charsets,
+the deformable attention's sampling, the CTC loss and blank synthesis,
+NMS, the matcher), ``eval/`` (decode, metrics, the evaluate entry point
+and its sweep), ``train/`` (optimizer, train steps, checkpoints, the
+trainer and the finetune and pretrain entry points, the fresh
+initialization, the reference's ``.pth`` map), ``data/`` (charsets,
 transforms, the bucketed batcher, npz line datasets, the HWDB synthetic
 stream), ``config/`` (the loader of recipe files) with ``configs/`` (the
 recipe files) and ``utils/boxes.py``. The package

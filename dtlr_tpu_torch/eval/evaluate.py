@@ -59,6 +59,7 @@ from ..models.dino import FLAGSHIP, DINO, DinoConfig, build_dino
 from ..ops.pixels import prep_images
 from ..train import checkpoints as ckpt_lib
 from ..train.config import load_settings
+from ..train.torch_import import is_torch_checkpoint, load_params_file
 from ..weights import load_into, params_from_npz
 from . import metrics as M
 from .decode import (greedy_decode, greedy_labels, nms_candidates, nms_decode,
@@ -334,14 +335,21 @@ def write_stats(out_dir: str, best: dict, dets: Optional[List[dict]] = None) -> 
         json.dump(best["record"], fh, indent=2)
 
 
-def load_weights(params: Optional[str], ckpt_dir: Optional[str], ema: bool) -> Dict[str, np.ndarray]:
-    """The flat ``params/...`` tree of ``params`` (an npz), or of the newest
-    train state under ``ckpt_dir`` (``checkpoint``, else
-    ``checkpoint_best_regular``), its EMA weights with ``ema``."""
+def load_weights(params: Optional[str], ckpt_dir: Optional[str], ema: bool,
+                 model_cfg: Optional[DinoConfig] = None) -> Dict[str, np.ndarray]:
+    """The flat ``params/...`` tree of ``params`` (an npz, or a reference
+    ``.pth`` of ``model_cfg``'s architecture), or of the newest train
+    state under ``ckpt_dir`` (``checkpoint``, else
+    ``checkpoint_best_regular``), its EMA weights with ``ema``; a train
+    state's attention projections are split into ``model_cfg``'s heads
+    (without it, as many as its ``ca_box_gamma`` has)."""
+    n_heads = model_cfg.nheads if model_cfg is not None else None
     if params is not None:
         if ema:
             raise ValueError("--ema needs a train state (--ckpt_dir): a params npz has no "
                              "EMA weights")
+        if is_torch_checkpoint(params):
+            return load_params_file(params, model_cfg or FLAGSHIP)
         return params_from_npz(params)
     for name in ("checkpoint", "checkpoint_best_regular"):
         state = ckpt_lib.restore_checkpoint(os.path.join(ckpt_dir, name))
@@ -353,14 +361,14 @@ def load_weights(params: Optional[str], ckpt_dir: Optional[str], ema: bool) -> D
         if state.get("ema_params") is None:
             raise ValueError("--ema requested but the checkpoint has no EMA weights "
                              "(train with use_ema=True)")
-        return ckpt_lib.params_to_flax(state["ema_params"])
-    return ckpt_lib.params_to_flax(state["params"])
+        return ckpt_lib.params_to_flax(state["ema_params"], n_heads)
+    return ckpt_lib.params_to_flax(state["params"], n_heads)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("DTLR port evaluation")
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--params", help="npz of params/... leaves")
+    src.add_argument("--params", help="npz of params/... leaves, or a reference .pth")
     src.add_argument("--ckpt_dir", help="a training run's output_dir")
     lines = p.add_mutually_exclusive_group(required=True)
     lines.add_argument("--lines", help="npz of pre-rendered lines")
@@ -419,7 +427,7 @@ def main(argv=None) -> dict:
         model_cfg = dataclasses.replace(model_cfg, compute_dtype=args.compute_dtype)
     data_cfg = dataclasses.replace(data_cfg, batch_size=args.batch_size)
     ds, charset, token_based, name = eval_lines(args, data_cfg)
-    tree = load_weights(args.params, args.ckpt_dir, args.ema)
+    tree = load_weights(args.params, args.ckpt_dir, args.ema, model_cfg)
     classes = tree["params/class_embed/fc/kernel"].shape[-1]
     if classes != len(charset):
         raise ValueError(f"the model has {classes} classes and the lines' charset "

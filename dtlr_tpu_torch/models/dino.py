@@ -1,6 +1,10 @@
-"""DINO character detector (counterpart of dtlr_tpu/models/dino.py for the
-flagship recipe: ResNet-50 with GroupNorm, windowed encoder, dense decoder
-cross-attention with the box prior).
+"""DINO character detector (counterpart of dtlr_tpu/models/dino.py): the
+flagship recipe's architecture (ResNet-50 with GroupNorm, windowed
+encoder, dense decoder cross-attention with the box prior) by default,
+and the reference's (FrozenBatchNorm ResNet-50 or -101, deformable
+encoder and decoder cross-attention, dtlr_tpu/configs/Latin.py) and
+every combination between them that the JAX modules accept, through
+``DinoConfig``'s architecture fields.
 
 ``DINO.forward(images, valid_hw, targets=None, train=False, cdn_noise=None)``
 takes ImageNet-normalized (B, H, W, 3) images, as the JAX module does, and
@@ -57,6 +61,25 @@ class DinoConfig:
     dn_number: int = 100
     dn_box_noise_scale: float = 0.4
     dn_label_noise_ratio: float = 0.5
+    #: the architecture (dtlr_tpu/models/dino.py:334-364 reads each from
+    #: the config, with the defaults of the reference's Latin.py where the
+    #: key is absent): "windowed" | "deformable"
+    encoder_type: str = "windowed"
+    #: the decoder's cross-attention: "dense" | "deform"
+    decoder_ca: str = "dense"
+    #: the dense cross-attention's Gaussian box prior
+    dense_box_bias: bool = True
+    #: one set of sampling offsets for all heads (config key
+    #: ``deform_shared_offsets``); the flagship's files set it
+    #: (Latin_TPU.py:7), where no module samples
+    shared_offsets: bool = True
+    #: the backbone's norms (config key ``batch_norm_type``): "group" |
+    #: "FrozenBatchNorm2d"
+    norm_kind: str = "group"
+    #: "resnet50" | "resnet101"
+    backbone: str = "resnet50"
+    enc_n_points: int = 4
+    dec_n_points: int = 4
 
     @property
     def dtype(self) -> torch.dtype:
@@ -107,7 +130,7 @@ class DINO(nn.Module):
         self.num_classes = num_classes
         C = cfg.hidden_dim
         dt = cfg.dtype
-        self.backbone_net = ResNet(dt)
+        self.backbone_net = ResNet(dt, cfg.norm_kind, cfg.backbone)
         chans = self.backbone_net.num_channels
         for i in range(NUM_LEVELS):
             if i < len(chans):
@@ -122,7 +145,10 @@ class DINO(nn.Module):
             d_model=C, n_heads=cfg.nheads, num_encoder_layers=cfg.enc_layers,
             num_decoder_layers=cfg.dec_layers, d_ffn=cfg.dim_feedforward,
             num_feature_levels=NUM_LEVELS,
-            num_queries=cfg.num_queries, encoder_win=cfg.encoder_win, dtype=dt)
+            num_queries=cfg.num_queries, encoder_win=cfg.encoder_win, dtype=dt,
+            encoder_type=cfg.encoder_type, decoder_ca=cfg.decoder_ca,
+            dense_box_bias=cfg.dense_box_bias, shared_offsets=cfg.shared_offsets,
+            enc_n_points=cfg.enc_n_points, dec_n_points=cfg.dec_n_points)
         self.class_embed = ClassHead(C, num_classes, dtype=dt)
         self.bbox_embed = BboxHead(C, dt)
         self.enc_out_class_embed = ClassHead(C, num_classes, dtype=dt)

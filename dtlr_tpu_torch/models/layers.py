@@ -1,5 +1,6 @@
-"""Dense, conv and norm layers with flax's ``dtype`` semantics, the MLP
-and multi-head attention (counterpart of dtlr_tpu/models/layers.py).
+"""Dense, conv and norm layers with flax's ``dtype`` semantics, the MLP,
+multi-head attention and multi-scale deformable attention (counterpart
+of dtlr_tpu/models/layers.py).
 
 flax's ``DenseGeneral((M, D))`` q/k/v projections are ``nn.Linear(C, M*D)``
 here and its ``out_proj`` over the (M, D) axes is ``nn.Linear(M*D, C)``;
@@ -21,12 +22,13 @@ the input projections' have none, dtlr_tpu/models/dino.py:154).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.deform_attn import deform_attn, deform_attn_shared
 from ..ops.flash_attn import BoxPrior, flash_mha
 
 
@@ -138,3 +140,60 @@ class MultiHeadAttention(nn.Module):
         # on CUDA ``out`` is laid out as (B, Q, M, D) and the cast keeps that
         # layout, so the transpose and reshape below are views
         return self.out_proj(out.to(self.compute_dtype).transpose(1, 2).reshape(B, Lq, C))
+
+
+class MSDeformAttn(nn.Module):
+    """Multi-scale deformable attention (dtlr_tpu/models/layers.py:60-137):
+    query (B, Lq, C), reference points (B, Lq, L, 2) normalized or
+    (B, Lq, L, 4) boxes (cxcywh) in [0, 1], the flattened levels
+    (B, S, C) with their (H, W) shapes, and the padding mask (B, S) True
+    at padding -> (B, Lq, C) in ``dtype``.
+
+    ``value_proj`` and ``output_proj`` compute in ``dtype``; the sampling
+    offsets and attention weights in float32 on the query cast to float32,
+    whatever ``dtype`` is. With ``shared_offsets`` one offset group serves
+    every head (``deform_attn_shared``); the attention weights stay per
+    head. 2-d reference points take offsets in pixels of each level;
+    4-d ones take them relative to the box, ``offsets / P * wh * 0.5``."""
+
+    def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
+                 n_points: int = 4, shared_offsets: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
+        self.shared_offsets = shared_offsets
+        self.compute_dtype = dtype
+        groups = 1 if shared_offsets else n_heads
+        self.sampling_offsets = Dense(d_model, groups * n_levels * n_points * 2)
+        self.attention_weights = Dense(d_model, n_heads * n_levels * n_points)
+        self.value_proj = Dense(d_model, d_model, dtype=dtype)
+        self.output_proj = Dense(d_model, d_model, dtype=dtype)
+
+    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
+                input_flatten: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                input_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, Lq, _ = query.shape
+        S, C = input_flatten.shape[1:]
+        M, L, P = self.n_heads, self.n_levels, self.n_points
+        value = self.value_proj(input_flatten)
+        if input_padding_mask is not None:
+            value = value.masked_fill(input_padding_mask[..., None], 0.0)
+        q = query.float()
+        offsets = self.sampling_offsets(q).view(B, Lq, -1, L, P, 2)
+        attn = F.softmax(self.attention_weights(q).view(B, Lq, M, L * P), dim=-1)
+        attn = attn.view(B, Lq, M, L, P)
+        ref = reference_points.float()
+        if ref.shape[-1] == 2:
+            normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
+                                      dtype=torch.float32, device=ref.device)
+            loc = ref[:, :, None, :, None, :] + offsets / normalizer[:, None, :]
+        elif ref.shape[-1] == 4:
+            loc = (ref[:, :, None, :, None, :2]
+                   + offsets / P * ref[:, :, None, :, None, 2:] * 0.5)
+        else:
+            raise ValueError(f"reference points end in 2 or 4 values, got {ref.shape[-1]}")
+        if self.shared_offsets:
+            out = deform_attn_shared(value, spatial_shapes, loc[:, :, 0], attn, M)
+        else:
+            out = deform_attn(value.view(B, S, M, C // M), spatial_shapes, loc, attn)
+        return self.output_proj(out.to(self.compute_dtype))

@@ -1,15 +1,23 @@
 """Encoder, two-stage query selection and decoder with iterative box
-refinement (counterpart of dtlr_tpu/models/transformer.py
-with ``encoder_type="windowed"``, ``decoder_ca="dense"`` and
-``dense_box_bias=True``: the flagship recipe).
+refinement (counterpart of dtlr_tpu/models/transformer.py).
 
-Every decoder attention goes through ``flash_mha``: the cross-attention
-with the box prior, and the self-attention without it. In a detection
-training step the decoder also takes the CDN prefix (the denoising
-queries' boxes and label embeddings, dtlr_tpu/models/transformer.py:427-434)
-before the selected queries, and its self-attention the CDN group mask
-(``query_group``); at inference and in CTC finetuning there is neither.
-On CUDA both attentions run the hand-written kernel.
+The encoder is windowed (``encoder_type="windowed"``, the flagship
+recipe, dtlr_tpu/configs/Latin_TPU.py) or deformable (the reference's,
+dtlr_tpu/configs/Latin.py: multi-scale deformable self-attention from
+each pixel's reference point). The decoder's cross-attention is dense
+(``decoder_ca="dense"``: over the S keys with key padding, with the
+Gaussian box prior under ``dense_box_bias``) or deformable (``"deform"``:
+``MSDeformAttn`` from each query's box).
+
+The self-attention of every decoder layer goes through ``flash_mha``,
+and so does a dense cross-attention (with the box prior or without it).
+In a detection training step the decoder also takes the CDN prefix (the
+denoising queries' boxes and label embeddings,
+dtlr_tpu/models/transformer.py:427-434) before the selected queries, and
+its self-attention the CDN group mask (``query_group``); at inference and
+in CTC finetuning there is neither. On CUDA these attentions run the
+hand-written kernel; the deformable sampling is plain torch
+(``ops/deform_attn.py``).
 
 Gradients stop where JAX's do (dtlr_tpu/models/transformer.py:423,469):
 the decoder starts from the selected boxes detached (the CDN boxes carry
@@ -35,9 +43,30 @@ from torch.nn import functional as F
 
 from ..ops.flash_attn import make_box_prior
 from ..utils.boxes import inverse_sigmoid
-from .layers import MLP, Dense, LayerNorm, MultiHeadAttention
+from .layers import MLP, Dense, LayerNorm, MSDeformAttn, MultiHeadAttention
 from .position_encoding import gen_sineembed_for_position
 from .windowed_encoder import WindowedEncoderLayer
+
+
+ENCODER_TYPES = ("windowed", "deformable")
+DECODER_CA = ("dense", "deform")
+
+
+def get_encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
+                                 valid_ratios: torch.Tensor) -> torch.Tensor:
+    """Each pixel's centre normalized by its level's valid size, then
+    scaled by every level's valid ratios: (B, L, 2) (w, h) ratios ->
+    (B, S, L, 2) (x, y) points (dtlr_tpu/models/transformer.py:31-46)."""
+    dev = valid_ratios.device
+    refs = []
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        ref_y = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None].expand(h, w)
+        ref_x = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :].expand(h, w)
+        ry = ref_y.reshape(1, -1) / (valid_ratios[:, None, lvl, 1] * h)
+        rx = ref_x.reshape(1, -1) / (valid_ratios[:, None, lvl, 0] * w)
+        refs.append(torch.stack([rx, ry], dim=-1))
+    reference_points = torch.cat(refs, dim=1)  # (B, S, 2)
+    return reference_points[:, :, None, :] * valid_ratios[:, None, :, :]
 
 
 def get_valid_ratios(masks: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -88,56 +117,110 @@ def top_k_stable(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.argsort(scores, dim=-1, descending=True, stable=True)[..., :k]
 
 
-class DecoderLayer(nn.Module):
-    """Self-attention, dense cross-attention with the box prior, FFN."""
+class EncoderLayer(nn.Module):
+    """The deformable encoder layer (dtlr_tpu/models/transformer.py:130-157):
+    multi-scale deformable self-attention from each pixel's reference
+    point, then an FFN, each followed by a float32 LayerNorm."""
 
-    def __init__(self, d_model: int = 256, d_ffn: int = 2048, n_heads: int = 8,
+    def __init__(self, d_model: int = 256, d_ffn: int = 2048, n_levels: int = 4,
+                 n_heads: int = 8, n_points: int = 4, shared_offsets: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                      shared_offsets, dtype)
+        self.norm1 = LayerNorm(d_model)
+        self.linear1 = Dense(d_model, d_ffn, dtype=dtype)
+        self.linear2 = Dense(d_ffn, d_model, dtype=dtype)
+        self.norm2 = LayerNorm(d_model)
+
+    def forward(self, src, pos, reference_points, spatial_shapes, key_padding_mask):
+        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes,
+                              key_padding_mask)
+        src = self.norm1(src + src2)
+        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+
+
+class DecoderLayer(nn.Module):
+    """Self-attention, cross-attention, FFN. The cross-attention is
+    ``MSDeformAttn`` from the query's box (``ca_type="deform"``) or dense
+    over the S keys (``"dense"``), with the box prior and its learned
+    per-head ``ca_box_gamma`` under ``box_bias``."""
+
+    def __init__(self, d_model: int = 256, d_ffn: int = 2048, n_heads: int = 8,
+                 dtype: torch.dtype = torch.float32, ca_type: str = "dense",
+                 box_bias: bool = True, n_levels: int = 4, n_points: int = 4,
+                 shared_offsets: bool = False):
+        super().__init__()
+        self.ca_type, self.box_bias = ca_type, box_bias and ca_type == "dense"
         self.self_attn = MultiHeadAttention(d_model, n_heads, dtype)
         self.norm2 = LayerNorm(d_model)
-        self.ca_box_gamma = nn.Parameter(torch.zeros(n_heads))
-        self.cross_attn = MultiHeadAttention(d_model, n_heads, dtype)
+        if self.box_bias:
+            self.ca_box_gamma = nn.Parameter(torch.zeros(n_heads))
+        if ca_type == "dense":
+            self.cross_attn = MultiHeadAttention(d_model, n_heads, dtype)
+        else:
+            self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
+                                           shared_offsets, dtype)
         self.norm1 = LayerNorm(d_model)
         self.linear1 = Dense(d_model, d_ffn, dtype=dtype)
         self.linear2 = Dense(d_ffn, d_model, dtype=dtype)
         self.norm3 = LayerNorm(d_model)
 
     def forward(self, tgt, query_pos, reference_points_input, memory,
-                spatial_shapes, key_bias, memory_pos, query_group=None):
+                spatial_shapes, key_bias, memory_pos, query_group=None,
+                padding_mask=None):
         q = tgt + query_pos
         tgt = self.norm2(tgt + self.self_attn(q, q, tgt, query_group=query_group))
-        prior = make_box_prior(reference_points_input, spatial_shapes,
-                               self.ca_box_gamma.exp())
-        t2 = self.cross_attn(tgt + query_pos, memory + memory_pos, memory,
-                             key_bias=key_bias, box_prior=prior)
+        if self.ca_type == "deform":
+            t2 = self.cross_attn(tgt + query_pos, reference_points_input, memory,
+                                 spatial_shapes, padding_mask)
+        else:
+            prior = (make_box_prior(reference_points_input, spatial_shapes,
+                                    self.ca_box_gamma.exp()) if self.box_bias else None)
+            t2 = self.cross_attn(tgt + query_pos, memory + memory_pos, memory,
+                                 key_bias=key_bias, box_prior=prior)
         tgt = self.norm1(tgt + t2)
         return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
 
 
 class DeformableTransformer(nn.Module):
-    """Windowed encoder, two-stage top-k selection and decoder. ``forward``
-    returns (hs, references, hs_enc, ref_enc, init_box_proposal) as the
-    JAX module does, batch-major."""
+    """Encoder (windowed or deformable), two-stage top-k selection and
+    decoder (dense or deformable cross-attention). ``forward`` returns
+    (hs, references, hs_enc, ref_enc, init_box_proposal) as the JAX
+    module does, batch-major."""
 
     def __init__(self, d_model: int = 256, n_heads: int = 8,
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  d_ffn: int = 2048, num_feature_levels: int = 4,
                  num_queries: int = 900, encoder_win: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, encoder_type: str = "windowed",
+                 decoder_ca: str = "dense", dense_box_bias: bool = True,
+                 shared_offsets: bool = False, enc_n_points: int = 4,
+                 dec_n_points: int = 4):
         super().__init__()
+        if encoder_type not in ENCODER_TYPES:
+            raise ValueError(f"encoder_type must be one of {ENCODER_TYPES}, got {encoder_type!r}")
+        if decoder_ca not in DECODER_CA:
+            raise ValueError(f"decoder_ca must be one of {DECODER_CA}, got {decoder_ca!r}")
         self.d_model = d_model
         self.compute_dtype = dtype
         self.num_queries = num_queries
         self.num_encoder_layers = num_encoder_layers
         self.num_decoder_layers = num_decoder_layers
+        self.encoder_type, self.decoder_ca = encoder_type, decoder_ca
         self.level_embed = nn.Parameter(torch.zeros(num_feature_levels, d_model))
         for i in range(num_encoder_layers):
-            self.add_module(f"encoder_layer_{i}", WindowedEncoderLayer(
-                d_model, d_ffn, n_heads, win=encoder_win, shift=bool(i % 2), dtype=dtype))
+            if encoder_type == "windowed":
+                layer = WindowedEncoderLayer(d_model, d_ffn, n_heads, win=encoder_win,
+                                             shift=bool(i % 2), dtype=dtype)
+            else:
+                layer = EncoderLayer(d_model, d_ffn, num_feature_levels, n_heads,
+                                     enc_n_points, shared_offsets, dtype)
+            self.add_module(f"encoder_layer_{i}", layer)
         for i in range(num_decoder_layers):
-            self.add_module(f"decoder_layer_{i}",
-                            DecoderLayer(d_model, d_ffn, n_heads, dtype))
+            self.add_module(f"decoder_layer_{i}", DecoderLayer(
+                d_model, d_ffn, n_heads, dtype, decoder_ca, dense_box_bias,
+                num_feature_levels, dec_n_points, shared_offsets))
         self.decoder_norm = LayerNorm(d_model)
         self.enc_output = Dense(d_model, d_model, dtype=dtype)
         self.enc_output_norm = LayerNorm(d_model)
@@ -167,9 +250,15 @@ class DeformableTransformer(nn.Module):
         valid_ratios = get_valid_ratios(masks)
 
         memory = src_flat
-        for i in range(self.num_encoder_layers):
-            memory = getattr(self, f"encoder_layer_{i}")(
-                memory, pos_flat, spatial_shapes, mask_flat)
+        if self.encoder_type == "windowed":
+            for i in range(self.num_encoder_layers):
+                memory = getattr(self, f"encoder_layer_{i}")(
+                    memory, pos_flat, spatial_shapes, mask_flat)
+        else:
+            enc_ref = get_encoder_reference_points(spatial_shapes, valid_ratios)
+            for i in range(self.num_encoder_layers):
+                memory = getattr(self, f"encoder_layer_{i}")(
+                    memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
 
         # two-stage selection
         output_memory, output_proposals, proposal_valid = gen_encoder_output_proposals(
@@ -208,7 +297,7 @@ class DeformableTransformer(nn.Module):
                 gen_sineembed_for_position(ref_input[:, :, 0, :], dim=C // 2))
             out_dec = getattr(self, f"decoder_layer_{lid}")(
                 out_dec, query_pos, ref_input, memory, spatial_shapes, key_bias,
-                pos_flat, query_group)
+                pos_flat, query_group, mask_flat)
             delta = bbox_head(out_dec).float()
             new_ref = (delta + inverse_sigmoid(reference_points)).sigmoid()
             # the next layer refines a stopped box; the outputs keep new_ref

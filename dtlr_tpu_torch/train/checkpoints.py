@@ -55,12 +55,20 @@ def _flax_leaf(name: str, x: np.ndarray, n_heads: int):
     return "/".join(["params"] + mod + [leaf]), np.ascontiguousarray(x)
 
 
-def params_to_flax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def params_to_flax(params: Mapping[str, torch.Tensor],
+                   n_heads: Optional[int] = None) -> Dict[str, np.ndarray]:
     """The port's parameters by name -> the flat ``params/...`` tree in
-    flax layouts (the inverse of ``weights.load_jax_params``); the head
-    count is read from ``ca_box_gamma``."""
-    gammas = [v for k, v in params.items() if k.endswith("ca_box_gamma")]
-    n_heads = int(gammas[0].numel()) if gammas else 1
+    flax layouts (the inverse of ``weights.load_jax_params``). The
+    attention projections' kernels are split by head: ``n_heads``, else
+    the size of ``ca_box_gamma`` (the flagship's); a tree with attention
+    projections and neither raises."""
+    if n_heads is None:
+        gammas = [v for k, v in params.items() if k.endswith("ca_box_gamma")]
+        if gammas:
+            n_heads = int(gammas[0].numel())
+        elif any(_HEAD_PROJ.search(k) for k in params):
+            raise ValueError("params_to_flax needs n_heads: the tree has attention "
+                             "projections and no ca_box_gamma")
     out = {}
     for name, t in params.items():
         key, x = _flax_leaf(name, t.detach().float().cpu().numpy(), n_heads)
@@ -73,7 +81,7 @@ def export_params_npz(model: nn.Module, out_path: str, dtype: Optional[str] = "f
     package's format; floating leaves are cast to ``dtype`` (float16, as
     the shipped checkpoints; None keeps float32). Returns the file's size
     in bytes."""
-    flat = params_to_flax(dict(model.named_parameters()))
+    flat = params_to_flax(dict(model.named_parameters()), model.cfg.nheads)
     if dtype is not None:
         flat = {k: v.astype(dtype) for k, v in flat.items()}
     np.savez_compressed(out_path, **flat)

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 from .. import config as cfg_lib
 from ..models.dino import FLAGSHIP, DinoConfig
+from ..models.resnet import NORM_NAMES, STAGES
+from ..models.transformer import DECODER_CA, ENCODER_TYPES
 
 
 @dataclass
@@ -160,7 +162,8 @@ def apply_options(train_cfg, model_cfg, options):
 # ------------------------------------------------------------ config files
 
 #: fields whose config key has another name
-_KEY_OF_FIELD = {"reuse": "synthetic_reuse"}
+_KEY_OF_FIELD = {"reuse": "synthetic_reuse", "shared_offsets": "deform_shared_offsets",
+                 "norm_kind": "batch_norm_type"}
 #: keys a CTC finetune does not take: dtlr_tpu/train/finetune.py:206-214
 #: passes the batcher no reuse pool and no erasing
 _NOT_IN_FINETUNE = ("synthetic_reuse", "truly_random_erasing")
@@ -179,6 +182,9 @@ JAX_DEFAULTS = {
     "max_iterations": 2500, "eval_epoch": 10, "save_checkpoint_interval": 100,
     "compute_dtype": "float32", "use_dn": True, "dn_number": 100, "dn_box_noise_scale": 0.4,
     "dn_label_noise_ratio": 0.5, "encoder_win": 32,
+    # the architecture (dtlr_tpu/models/dino.py:348-360): the reference's
+    "encoder_type": "deformable", "decoder_ca": "deform", "dense_box_bias": False,
+    "deform_shared_offsets": False, "batch_norm_type": "FrozenBatchNorm2d",
 }
 #: the held-out set's default size per kind (pretrain.py:232, finetune.py:193)
 _EVAL_SET_SIZE = {"ctc": 64, "pretrain": 200}
@@ -186,16 +192,21 @@ _EVAL_SET_SIZE = {"ctc": 64, "pretrain": 200}
 REQUIRED = ("num_queries", "hidden_dim", "nheads", "enc_layers", "dec_layers",
             "dim_feedforward", "lr", "lr_backbone", "lr_drop", "epochs", "batch_size",
             "data_aug_scales", "data_aug_max_size", "cls_loss_coef", "bbox_loss_coef",
-            "giou_loss_coef")
-#: the architecture the port has, as (key, its value, JAX's default where
-#: the key is absent): the flagship's (Latin_TPU.py). Another value asks
-#: for a path that is not ported.
+            "giou_loss_coef", "backbone", "enc_n_points", "dec_n_points")
+#: the architecture's keys that ``DinoConfig`` reads and the values the
+#: port's modules accept (dtlr_tpu/models/transformer.py:299-307,
+#: resnet.py:52-57)
+ACCEPTED = {
+    "encoder_type": ENCODER_TYPES,
+    "decoder_ca": DECODER_CA,
+    "batch_norm_type": tuple(NORM_NAMES),
+    "backbone": tuple(STAGES),
+}
+#: what ROADMAP.md holds for a value the port does not accept
+MISSING = {"backbone": "the Swin and ConvNeXt backbones are ROADMAP.md's Queue 1 item 13"}
+#: the rest of the architecture, which the port has at one value only, as
+#: (key, that value, JAX's default where the key is absent)
 ARCHITECTURE = {
-    "encoder_type": ("windowed", "deformable"),
-    "decoder_ca": ("dense", "deform"),
-    "dense_box_bias": (True, False),
-    "batch_norm_type": ("group", "FrozenBatchNorm2d"),
-    "backbone": ("resnet50", None),
     "num_feature_levels": (4, None),
     "decoder_module_seq": (["sa", "ca", "ffn"], ["sa", "ca", "ffn"]),
     "dropout": (0.0, None),
@@ -223,18 +234,26 @@ def _coerce(value, kind):
 
 
 def check_architecture(cfg) -> None:
-    """Refuse a config whose model the port does not have."""
+    """Refuse a config whose model the port does not have: a backbone
+    other than the ResNets, an encoder, cross-attention or norm that JAX's
+    modules do not know, or another value of a key in ``ARCHITECTURE``
+    (levels, decoder order, dropout, position-encoding temperatures,
+    parameter dtype)."""
+    for key, accepted in ACCEPTED.items():
+        value = cfg[key] if key in cfg else JAX_DEFAULTS.get(key)
+        if value is None:
+            raise KeyError(f"the config has no {key!r}")
+        if value not in accepted:
+            raise NotImplementedError(
+                f"{key} = {value!r}: the port has {key} in {accepted}"
+                + (f"; {MISSING[key]}" if key in MISSING else ""))
     for key, (want, default) in ARCHITECTURE.items():
         value = cfg[key] if key in cfg else default
         if key not in cfg and default is None:
             raise KeyError(f"the config has no {key!r}")
         if (list(value) if isinstance(value, (list, tuple)) else value) != want:
             raise NotImplementedError(
-                f"{key} = {value!r}: the port has the flagship architecture only "
-                f"({key} = {want!r}; dtlr_tpu_torch/configs/Latin_TPU.py: windowed encoder, "
-                "dense decoder cross-attention with the box prior, GroupNorm ResNet-50). "
-                "The deformable attention and FrozenBatchNorm are ROADMAP.md's "
-                "reference-faithful path, not ported yet")
+                f"{key} = {value!r}: the port's modules have {key} = {want!r} only")
 
 
 def from_config(cfg, kind: str):
@@ -293,6 +312,7 @@ def to_config(train_cfg, model_cfg, num_classes: int, labelbook_size: int) -> di
     run's dumped ``config_cfg.py``; ``from_config`` reads them back."""
     cfg = {k: v for k, (v, _) in ARCHITECTURE.items()}
     cfg.update(num_classes=num_classes, dn_labelbook_size=labelbook_size)
+    # DinoConfig's fields below carry the rest of the architecture
     for obj in (train_cfg, model_cfg):
         for f in dataclasses.fields(obj):
             if f.name == "dn_labelbook_size":

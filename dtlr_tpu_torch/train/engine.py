@@ -225,7 +225,8 @@ class Trainer:
             if train_cer_every > 0 and i % train_cer_every == 0 and self.charset:
                 add(self.batch_cer(batch))
             if i % print_freq == 0:
-                host = {k: float(m[k]) for k in LOGGED[self.mode]}
+                # without CDN (use_dn False) a detection step has no DN terms
+                host = {k: float(m[k]) for k in LOGGED[self.mode] if k in m}
                 add(host)
                 self.log(f"epoch {self.epoch} it {i}: "
                          + " ".join(f"{k}={v:.4f}" for k, v in host.items()))

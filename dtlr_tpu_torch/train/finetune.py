@@ -56,6 +56,7 @@ from . import checkpoints as ckpt_lib
 from .config import dump_run_config, labelbook_offset, load_settings
 from .engine import Trainer
 from .init import init_params
+from .torch_import import is_torch_checkpoint, load_params_file
 
 #: steps between two training CER reads (dtlr_tpu/train/finetune.py:261)
 TRAIN_CER_EVERY = 100
@@ -108,17 +109,18 @@ def line_sources(args, cfg):
 
 
 def pretrained(path: str, trainer: Trainer):
-    """The parameters of an npz snapshot, or of the newest train state of
-    a run's ``checkpoint/`` (None if it has none)."""
-    if path.endswith(".npz"):
+    """The parameters of an npz snapshot or a reference ``.pth``, or of
+    the newest train state of a run's ``checkpoint/`` (None if it has
+    none)."""
+    if path.endswith(".npz") or is_torch_checkpoint(path):
         trainer.log(f"loaded pretrain params snapshot {path}")
-        return ckpt_lib.load_params_npz(path)
+        return load_params_file(path, trainer.model_cfg)
     saved = ckpt_lib.restore_checkpoint(os.path.join(path, "checkpoint"))
     if saved is None:
         trainer.log(f"no checkpoint under {path}: keeping the fresh initialization")
         return None
     trainer.log(f"loaded pretrain params from {path} (step {saved['step']})")
-    return ckpt_lib.params_to_flax(saved["params"])
+    return ckpt_lib.params_to_flax(saved["params"], trainer.model_cfg.nheads)
 
 
 def main(argv=None) -> dict:
@@ -143,7 +145,7 @@ def main(argv=None) -> dict:
         saved = ckpt_lib.restore_checkpoint(os.path.join(args.output_dir, "checkpoint"))
         if saved is None:
             raise FileNotFoundError(f"no checkpoint to resume under {args.output_dir}")
-        params = ckpt_lib.params_to_flax(saved["params"])
+        params = ckpt_lib.params_to_flax(saved["params"], model_cfg.nheads)
     elif args.pretrain_dir is not None:
         params = pretrained(args.pretrain_dir, trainer)
     if params is None:

@@ -19,7 +19,15 @@ Leaf families, by the JAX module that makes each:
 - zero: the windowed encoder's ``mix_up`` and ``mix_down`` kernels
   (dtlr_tpu/models/windowed_encoder.py:139-141), the box heads' last
   layer (dtlr_tpu/models/dino.py:80-81), ``ca_box_gamma``
-  (dtlr_tpu/models/transformer.py:219);
+  (dtlr_tpu/models/transformer.py:219), and in ``MSDeformAttn`` the
+  ``sampling_offsets`` kernel and the ``attention_weights`` kernel and
+  bias (dtlr_tpu/models/layers.py:96-110);
+- the ring: ``sampling_offsets``' bias, head (or offset group) h pointing
+  at the angle 2*pi*h/groups, normalized to the unit Linf ball, point p
+  scaled by p + 1, the same for every level
+  (dtlr_tpu/models/layers.py:39-57);
+- FrozenBatchNorm: ``scale`` (the port's ``weight``) and ``var`` one,
+  ``bias`` and ``mean`` zero (dtlr_tpu/models/resnet.py:43-46);
 - normal(1): ``level_embed`` and ``tgt_embed`` (transformer.py:309,358)
   and the CDN label encoder ``label_enc`` (dino.py:202-204);
 - the class heads' biases: the focal prior -log(0.99 / 0.01) (dino.py:61).
@@ -37,7 +45,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.dino import DINO, DinoConfig
+from ..models.dino import DINO, NUM_LEVELS, DinoConfig
 from .checkpoints import params_to_flax
 
 #: flax's truncated_normal std correction: the std of a unit normal
@@ -45,17 +53,22 @@ from .checkpoints import params_to_flax
 TRUNCATED_STD = 0.87962566103423978
 FOCAL_PRIOR = -math.log((1 - 0.01) / 0.01)
 #: parameters that start at zero, by a part of their name
-ZERO = ("mix_up.weight", "mix_down.weight", "bbox_embed.layers_2.", "ca_box_gamma")
+ZERO = ("mix_up.weight", "mix_down.weight", "bbox_embed.layers_2.", "ca_box_gamma",
+        "sampling_offsets.weight", "attention_weights.")
 #: parameters drawn from normal(1), by their last name
 UNIT_NORMAL = ("level_embed", "tgt_embed", "label_enc")
 
 
 def family(name: str, ndim: int) -> str:
     """The initializer family of a port parameter: ``zero``, ``normal``,
-    ``prior``, ``one`` or ``lecun``."""
+    ``prior``, ``ring``, ``one`` or ``lecun``."""
     leaf = name.rsplit(".", 1)[-1]
     if any(z in name for z in ZERO):
         return "zero"
+    if name.endswith("sampling_offsets.bias"):
+        return "ring"
+    if "FrozenBatchNorm" in name:
+        return "one" if leaf in ("weight", "var") else "zero"
     if leaf in UNIT_NORMAL:
         return "normal"
     if name.endswith("class_embed.fc.bias"):
@@ -73,8 +86,22 @@ def lecun_std(shape) -> float:
     return math.sqrt(1.0 / int(np.prod(shape[1:]))) / TRUNCATED_STD
 
 
-def draw(name: str, shape, gen: torch.Generator) -> torch.Tensor:
+def ring_bias(groups: int, levels: int, points: int) -> torch.Tensor:
+    """``sampling_offsets``' initial bias, (groups * levels * points * 2,)
+    float32, as dtlr_tpu/models/layers.py:39-57 computes it."""
+    thetas = torch.arange(groups, dtype=torch.float32) * (2.0 * math.pi / groups)
+    grid = torch.stack([thetas.cos(), thetas.sin()], -1)
+    grid = grid / grid.abs().max(-1, keepdim=True).values
+    grid = grid[:, None, None, :].expand(groups, levels, points, 2)
+    scales = torch.arange(1, points + 1, dtype=torch.float32)[None, None, :, None]
+    return (grid * scales).reshape(-1)
+
+
+def draw(name: str, shape, gen: torch.Generator, cfg: DinoConfig) -> torch.Tensor:
     kind = family(name, len(shape))
+    if kind == "ring":
+        points = cfg.enc_n_points if ".encoder_layer_" in name else cfg.dec_n_points
+        return ring_bias(1 if cfg.shared_offsets else cfg.nheads, NUM_LEVELS, points)
     if kind == "zero":
         return torch.zeros(shape)
     if kind == "one":
@@ -95,4 +122,5 @@ def init_params(model_cfg: DinoConfig, num_classes: int,
     ``model_cfg.dn_labelbook_size``), as a flat ``params/...`` tree."""
     with torch.device("meta"):
         shapes = {n: tuple(p.shape) for n, p in DINO(model_cfg, num_classes).named_parameters()}
-    return params_to_flax({n: draw(n, s, gen) for n, s in shapes.items()})
+    return params_to_flax({n: draw(n, s, gen, model_cfg) for n, s in shapes.items()},
+                          model_cfg.nheads)

@@ -70,6 +70,7 @@ from . import checkpoints as ckpt_lib
 from .config import dump_run_config, labelbook_offset, load_settings
 from .engine import Trainer
 from .init import init_params
+from .torch_import import load_params_file, merge_params_file
 
 
 def parse_args(argv=None):
@@ -81,7 +82,8 @@ def parse_args(argv=None):
     p.add_argument("--lines", default=None, help="npz of pre-rendered lines with boxes")
     p.add_argument("--val_lines", default=None, help="npz of held-out lines (default --lines)")
     p.add_argument("--params", default=None,
-                   help="parameter snapshot (.npz) to start from, every leaf")
+                   help="parameter snapshot (.npz, or a reference .pth) to start from, "
+                        "every leaf")
     p.add_argument("--warm_start_npz", default=None,
                    help="npz whose fitting leaves go into the fresh initialization "
                         "(skipped when --output_dir holds a checkpoint)")
@@ -178,7 +180,7 @@ def main(argv=None) -> dict:
     result = {"num_classes": num_classes, "warm_start": None, "resumed": None, "epochs": [],
               "train": None}
     if args.params is not None:
-        params = ckpt_lib.load_params_npz(args.params)
+        params = load_params_file(args.params, model_cfg)
         trainer.log(f"loaded params snapshot {args.params}")
         classes = params["params/class_embed/fc/kernel"].shape[-1]
         if classes != num_classes:
@@ -191,7 +193,8 @@ def main(argv=None) -> dict:
         ckpt_dir = os.path.join(args.output_dir, "checkpoint")
         if args.warm_start_npz and ckpt_lib.latest_step(ckpt_dir) is None:
             fresh_tree = params
-            params, counts = ckpt_lib.merge_params_npz(fresh_tree, args.warm_start_npz)
+            params, counts = merge_params_file(fresh_tree, args.warm_start_npz,
+                                               model_cfg.nheads)
             # a leaf that was not copied is the fresh tree's own array
             fresh = sorted(k for k in params if params[k] is fresh_tree[k])
             result["warm_start"] = {**counts, "fresh_leaves": fresh}

@@ -25,7 +25,7 @@ from ..models.dino import DINO
 from ..ops.ctc import ctc_loss
 from ..ops.matcher import match_outputs
 from ..ops.pixels import prep_images
-from .optim import Optimizer
+from .optim import Optimizer, label_params
 
 Batch = Dict[str, torch.Tensor]
 
@@ -58,8 +58,14 @@ def _warmed_decay(ema_decay: float, step: int) -> float:
 
 @torch.no_grad()
 def update_ema(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor], decay: float) -> None:
-    """ema = ema * decay + (1 - decay) * params, in place."""
-    names = list(ema)
+    """ema = ema * decay + (1 - decay) * params, in place, for every
+    parameter but the frozen norms' statistics: the optimizer never moves
+    them, so their average is their value, which float rounding of the
+    weighted sum could otherwise move by an ulp."""
+    labels = label_params(list(ema))
+    names = [n for n in ema if labels[n] != "frozen"]
+    if not names:
+        return
     e = [ema[n] for n in names]
     torch._foreach_mul_(e, decay)
     torch._foreach_add_(e, [params[n].detach() for n in names],

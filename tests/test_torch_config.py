@@ -15,8 +15,13 @@ config onto the port's settings (``from_config``).
 - ``from_config`` of Latin_TPU.py with round4_chain.sh's options is
   ``RECIPE_DETECTION`` and ``FLAGSHIP`` field for field; of the dumped
   finetune config it is ``RECIPE``; ``to_config`` reads back; the keys the
-  port does not read are listed; the configs of the deformable reference
-  path are refused, naming ROADMAP.md's item for it.
+  port does not read are listed.
+- Each of the 10 recipe files (the reference's deformable FrozenBN ones
+  included) loads to the model JAX's ``build_dino_from_config`` builds
+  from it, and at the tiny geometry the port's fresh tree has JAX's
+  parameter names and shapes (``jax.eval_shape`` of JAX's init). What
+  the port lacks (a Swin backbone, three levels, dropout, an unknown
+  encoder) is refused, naming it.
 """
 
 import dataclasses
@@ -121,9 +126,10 @@ def test_flagship_recipe_from_its_config_file():
         assert getattr(train, f.name) == getattr(TC.RECIPE_DETECTION, f.name), f.name
     assert train == TC.RECIPE_DETECTION and model == FLAGSHIP
     assert {"compilation_cache_dir", "rss_restart_gb", "synthetic_corpus_file",
-            "deform_shared_offsets", "enc_n_points", "query_dim"} <= set(unread)
+            "query_dim"} <= set(unread)
     assert not set(unread) & {"lr", "batch_size", "use_ema", "dn_labelbook_size",
-                              "num_classes", "encoder_type", "max_targets", "synthetic_reuse"}
+                              "num_classes", "encoder_type", "max_targets", "synthetic_reuse",
+                              "deform_shared_offsets", "enc_n_points", "batch_norm_type"}
     assert TC.labelbook_offset(cfg) == 1
     assert TC.labelbook_offset(TL.load_config(port_path("Chinese_TPU.py"))) == 0
 
@@ -153,12 +159,78 @@ def test_keys_that_are_absent_take_jax_s_defaults_and_read_back():
         TC.from_config(cfg, "pretrain")
 
 
-@pytest.mark.parametrize("name", ["Latin.py", "Chinese.py", "Latin_CTC.py", "HWDB_full.py",
-                                  "Chinese_w_masking.py", "Latin_w_erasing.py"])
-def test_the_reference_path_configs_are_refused(name):
-    with pytest.raises(NotImplementedError, match="reference-faithful"):
-        TC.from_config(TL.load_config(port_path(name)), "pretrain")
-    cfg = TL.apply_options(TL.load_config(port_path("Latin_TPU.py")),
-                           {"decoder_ca": "deform"})
-    with pytest.raises(NotImplementedError, match="decoder_ca = 'deform'"):
-        TC.from_config(cfg, "ctc")
+#: JAX's DINO attributes (dtlr_tpu/models/dino.py:334-364) and the
+#: DinoConfig field of each
+JAX_MODEL_FIELDS = {
+    "num_queries": "num_queries", "hidden_dim": "hidden_dim", "n_heads": "nheads",
+    "num_encoder_layers": "enc_layers", "num_decoder_layers": "dec_layers",
+    "d_ffn": "dim_feedforward", "encoder_win": "encoder_win", "use_dn": "use_dn",
+    "dn_number": "dn_number", "dn_box_noise_scale": "dn_box_noise_scale",
+    "dn_label_noise_ratio": "dn_label_noise_ratio", "encoder_type": "encoder_type",
+    "decoder_ca": "decoder_ca", "dense_box_bias": "dense_box_bias",
+    "shared_offsets": "shared_offsets", "norm_kind": "norm_kind", "backbone": "backbone",
+    "enc_n_points": "enc_n_points", "dec_n_points": "dec_n_points"}
+#: the options that cut a config to the tiny geometry; its architecture stays
+TINY_OPTIONS = ["num_queries=24", "hidden_dim=32", "nheads=4", "enc_layers=2", "dec_layers=2",
+                "dim_feedforward=64", "encoder_win=8", "num_classes=12",
+                "dn_labelbook_size=13"]
+RECIPE_FILES = [f for f in FILES if f != "transformer_base.py"]
+_JAX_TREES = {}
+
+
+def jax_tree_shapes(jmodel):
+    """Names and shapes of JAX's parameter tree (``jax.eval_shape`` of its
+    init on one 64x128 line), once per distinct model."""
+    import jax
+    import numpy as np
+
+    key = repr(jmodel)
+    if key not in _JAX_TREES:
+        images = np.zeros((1, 64, 128, 3), np.float32)
+        vh = np.asarray([[64, 128]], np.int32)
+        shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), images, vh, None,
+                                                    train=False))
+        flat = {"/".join(str(getattr(k, "key", k)) for k in path): tuple(x.shape)
+                for path, x in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+        _JAX_TREES[key] = flat
+    return _JAX_TREES[key]
+
+
+@pytest.mark.parametrize("name", RECIPE_FILES)
+def test_recipe_file_builds_jax_s_model(name):
+    """Each recipe file (the reference's six included) loads through
+    ``from_config`` to the model JAX's ``build_dino_from_config`` builds
+    from it (every architecture and geometry field), and at the tiny
+    geometry the port's fresh tree has JAX's names and shapes."""
+    import torch
+
+    from dtlr_tpu.models.dino import build_dino_from_config
+    from dtlr_tpu_torch.train.init import init_params
+
+    jcfg = JL.load_config(jax_path(name))
+    jmodel = build_dino_from_config(jcfg)
+    _, model, _ = TC.from_config(TL.load_config(port_path(name)), "pretrain")
+    for jname, field in JAX_MODEL_FIELDS.items():
+        assert getattr(model, field) == getattr(jmodel, jname), (name, field)
+    assert model.compute_dtype == jcfg.get_default("compute_dtype", "float32")
+
+    jtiny = build_dino_from_config(JL.apply_options(jcfg, JL.parse_options(TINY_OPTIONS)))
+    _, tiny, _ = TC.from_config(TL.apply_options(TL.load_config(port_path(name)),
+                                                 TL.parse_options(TINY_OPTIONS)), "pretrain")
+    tiny = dataclasses.replace(tiny, dn_labelbook_size=13)
+    got = init_params(tiny, 12, torch.Generator().manual_seed(0))
+    want = jax_tree_shapes(jtiny)
+    assert set(got) == set(want), (name, sorted(set(got) ^ set(want))[:6])
+    assert all(tuple(got[k].shape) == want[k] for k in want), name
+
+
+@pytest.mark.parametrize("option,match", [
+    ("backbone=swin_T_224_1k", "Swin and ConvNeXt"),
+    ("num_feature_levels=3", "num_feature_levels = 4"),
+    ("dropout=0.1", "dropout = 0.0"),
+    ("encoder_type=sparse", "encoder_type in"),
+], ids=["swin", "three_levels", "dropout", "unknown_encoder"])
+def test_what_the_port_lacks_is_refused(option, match):
+    cfg = TL.apply_options(TL.load_config(port_path("Latin.py")), TL.parse_options([option]))
+    with pytest.raises(NotImplementedError, match=match):
+        TC.from_config(cfg, "pretrain")

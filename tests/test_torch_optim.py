@@ -199,3 +199,41 @@ def test_labels_match_jax():
     names = list(SHAPES) + ["backbone_net.FrozenBatchNorm_0.scale"]
     want = jax_optim.label_params({n: 0 for n in names}, 1.0)
     assert optim.label_params(names) == want
+
+
+def test_frozen_norm_leaves_stay_through_steps_ema_and_resume():
+    """FrozenBN statistics (``frozen``, optax's ``set_to_zero``) get
+    gradients, which count in the clip's norm, and never move: after five
+    steps, after the EMA of those steps, and after a resume of the
+    optimizer's state and two more steps, every frozen leaf is its start
+    bit for bit; the other leaves follow optax at TOL."""
+    from dtlr_tpu_torch.train.train_step import _warmed_decay, update_ema
+
+    frozen = {f"backbone_net.layer1_0.FrozenBatchNorm_1.{leaf}": (8,)
+              for leaf in ("weight", "bias", "mean", "var")}
+    shapes = {**SHAPES, **frozen}
+    rng = np.random.default_rng(3)
+    params = {k: rng.uniform(0.5, 1.5, s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.normal(size=s) * 0.05).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(7)]
+    cfg = config()
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    want, _ = run_optax(jax_optim.build_optimizer(JaxCfg(cfg), jparams), params, grads)
+
+    p = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    opt = optim.build_optimizer(cfg, p)
+    ema = {k: v.clone() for k, v in p.items()}
+    for i, g in enumerate(grads[:5]):
+        opt.step({k: torch.from_numpy(v) for k, v in g.items()})
+        update_ema(ema, p, _warmed_decay(0.9997, i))
+    resumed = optim.build_optimizer(cfg, p)
+    resumed.load_state_dict(opt.state_dict())
+    for g in grads[5:]:
+        resumed.step({k: torch.from_numpy(v) for k, v in g.items()})
+    assert set(optim.label_params(list(shapes)).values()) == {"main", "backbone", "frozen"}
+    for k in frozen:
+        assert np.array_equal(p[k].numpy(), params[k]), k
+        assert np.array_equal(ema[k].numpy(), params[k]), k
+        assert k not in opt.state["mu"]
+    for k in SHAPES:
+        np.testing.assert_allclose(p[k].numpy(), want[k], rtol=0, atol=TOL, err_msg=k)

@@ -80,3 +80,32 @@ def test_a_whole_snapshot_copies_every_leaf(tmp_path):
     np.savez(tmp_path / "snap.npz", **snap)
     merged, counts = merge_both(fresh, tmp_path / "snap.npz")
     assert counts == {"copied": len(fresh), "fresh": 0, "unused": 0}
+
+
+def test_windowed_trunk_into_the_reference_architecture(tmp_path):
+    """A flagship (windowed, dense, GroupNorm) snapshot warm-starts
+    Latin.py's architecture (deformable, deform, FrozenBN) at TINY as
+    JAX's merge does: the backbone convolutions, the input projections,
+    the decoders' self-attention and FFNs, the heads and the embeddings
+    are copied; the FrozenBN statistics and the deformable attentions stay
+    fresh; the GroupNorms, the windowed encoders' and the dense
+    cross-attentions' leaves go unused."""
+    cfg = dataclasses.replace(TINY, encoder_type="deformable", decoder_ca="deform",
+                              dense_box_bias=False, shared_offsets=False,
+                              norm_kind="FrozenBatchNorm2d", dn_labelbook_size=13)
+    fresh = init_params(cfg, 12, torch.Generator().manual_seed(0))
+    trunk = {k: v.astype(np.float16) for k, v in tree(12, 1).items()}
+    path = tmp_path / "trunk.npz"
+    np.savez(path, **trunk)
+    got, counts = merge_both(fresh, path)
+    copied = {k for k in got if got[k] is not fresh[k]}
+    assert counts == {"copied": len(copied), "fresh": len(fresh) - len(copied),
+                      "unused": len(trunk) - len(copied)}
+    assert {k for k in copied if k.startswith("params/backbone_net/")} == {
+        k for k in fresh if k.startswith("params/backbone_net/") and k.endswith("/kernel")}
+    assert not any("FrozenBatchNorm" in k or "sampling_offsets" in k or "attention_weights" in k
+                   for k in copied)
+    assert {"params/transformer/decoder_layer_0/self_attn/q_proj/kernel",
+            "params/transformer/decoder_layer_1/linear2/bias", "params/class_embed/fc/kernel",
+            "params/transformer/tgt_embed", "params/label_enc"} <= copied
+    assert any("GroupNorm" in k for k in trunk if k not in copied)
