@@ -140,6 +140,34 @@ Phases, each printing one JSON line with its seconds:
            its weights (scripts/finetuning/IAM.sh, scripts/evaluating/IAM.sh);
            (e) train.pretrain -c configs/Chinese.py on the committed HWDB
            bank, 2 steps without CDN (scripts/pretraining/Synthetic_chinese.sh)
+  ddp      data parallelism over torch.distributed (dtlr_tpu_torch.parallel):
+           (a) python -m dtlr_tpu_torch.train.pretrain (two bf16 recipe steps
+           at B=8 on the detection fixture, a save, the evaluations) under
+           torchrun --nproc_per_node 1 over NCCL and the same command without
+           torchrun, each a child process: the saved train state and the
+           exported weights bit for bit alike, info.txt, log.txt and the
+           checkpoint written once; (b) the detection step (recipe CDN noise
+           drawn for the global batch, the auction) and the CTC step in fp32,
+           3 steps each on the eight fixture lines (global B=8), through
+           python -m dtlr_tpu_torch.scripts.ddp_check: in this process, over
+           two gloo ranks both on cuda:0 (4 lines each; the gradients' sum
+           staged through the host), and the detection step over NCCL at
+           world size 1: the ranks' parameters, optimizer state and EMA bit
+           for bit alike; the first step's global loss, terms and gradient
+           within DDP_REL (of the gradient's norm) of their reference, one
+           process's steps on each rank's four lines combined (world size
+           1: one process on all eight); that reference against one process
+           on all eight within SHAPE_LOSS_REL and SHAPE_GRAD_REL, with the
+           leaf that moves most, how the two-stage selection moves between
+           the halves and the whole batch, and how far one process moves
+           when every weight moves one float32 ulp; every rank's attention
+           launches as counted (6 + 6 a step); ms per step per rank, the
+           all-reduce's own ms, peak memory per rank; (c) the port's dry run
+           (dtlr_tpu_torch.scripts.dryrun_multichip) over two gloo ranks on
+           the card, run beside (a)'s two children; and the windowed
+           encoder's resize backward, CUDA's atomic one against
+           _MatrixResize's (the encoder's, which lets (a) repeat bit for
+           bit), ms per layer
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel (the attention
 in bf16 and, as ``*_fp32``, in fp32, at each dtype's path), the card's name
@@ -148,6 +176,7 @@ and power limit from nvidia-smi, and as the last line
 Needs torch, numpy and the repository; no network and no JAX.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -155,6 +184,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -287,6 +317,24 @@ MAX_LOGIT_TOL, BOX_TOL, SWAP_GAP_TOL, CER_VS_JAX = 5e-2, 5e-3, 1e-3, 0.01
 # steps (of 2^-4 at 8-16) apart
 CER_VS_JAX_BF16, CER_GT_SLACK_BF16, SWAP_GAP_TOL_BF16 = 0.02, 0.01, 0.25
 
+
+# the ddp phase: steps of each train step over two gloo ranks on the card
+# and in one process; the reference of the two ranks is one process's
+# steps on each rank's rows, combined as the global normalizers weight
+# them: the first step's global loss and terms within DDP_REL relative,
+# and its global gradient within DDP_REL of its norm (only the summation
+# order differs); each child's time limit
+DDP_STEPS, DDP_REL, DDP_CHILD_TIMEOUT = 3, 1e-5, 300
+# that reference against one process on the whole batch: the loss within
+# SHAPE_LOSS_REL relative and the gradient within SHAPE_GRAD_REL of its
+# norm, about four times the largest distance read on an H100 (loss 9.5e-6
+# detection, 3.3e-6 CTC; gradient 3.2e-5 and 5.5e-4 of the norm): the
+# card's kernels sum 4 lines and 8 in other orders, and the step magnifies
+# a rounding (the phase prints, beside it, how far one process moves when
+# every weight moves one float32 ulp, and the two-stage selection's moves)
+SHAPE_LOSS_REL, SHAPE_GRAD_REL = 1e-4, 2e-3
+# the windowed encoder's resize backward, timed both ways
+RESIZE_REPS = 20
 
 # the pretrain phase: the config files and the scripts' options, the HWDB
 # glyph bank and JAX's first batches on it (tests/test_torch_hwdb_synth.py),
@@ -2215,6 +2263,398 @@ def phase_probe():
     return rc, launches
 
 
+def ddp_batches(path, max_targets, workdir, name):
+    """The fixture's eight lines as one global batch, taken by each of
+    DDP_STEPS steps, and each half of it (rows 0-3, 4-7) for one step, in
+    ddp_check's npz layout; returns the paths and the batch."""
+    from dtlr_tpu_torch.eval.evaluate import load_lines
+    from dtlr_tpu_torch.train.engine import collate
+
+    lines = load_lines(path)
+    batch = collate(lines, range(len(lines["texts"])), lines["charset"], max_targets)
+    keys = [k for k in ("images", "valid_hw", "labels", "valid", "boxes") if k in batch]
+    paths = {"whole": os.path.join(workdir, f"{name}.npz")}
+    np.savez(paths["whole"], **{k: np.stack([np.asarray(batch[k])] * DDP_STEPS) for k in keys})
+    for h in range(2):
+        paths[h] = os.path.join(workdir, f"{name}_half{h}.npz")
+        np.savez(paths[h], **{k: np.asarray(batch[k])[None, 4 * h:4 * h + 4] for k in keys})
+    return paths, batch
+
+
+def half_draws(batch, workdir):
+    """The first step's CDN noise of the whole batch, as the trainer's
+    generator (seed 0) draws it on the card, cut into each half's rows."""
+    from dtlr_tpu_torch.models.cdn import draw_cdn_noise
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+
+    with np.load(DETECT_PARAMS) as z:
+        classes = z["params/class_embed/fc/kernel"].shape[-1]
+    gen = torch.Generator("cuda:0").manual_seed(0)
+    draws = draw_cdn_noise(len(batch["labels"]), batch["labels"].shape[1], FLAGSHIP.dn_number,
+                           classes, gen, torch.device("cuda:0"))
+    paths = {}
+    for h in range(2):
+        paths[h] = os.path.join(workdir, f"draws_half{h}.npz")
+        np.savez(paths[h], **{k: getattr(draws, k)[None, 4 * h:4 * h + 4].cpu().numpy()
+                              for k in ("flip", "label", "sign", "mag")})
+    return paths
+
+
+def halves_combined(mode, batch, half_dirs):
+    """One process's first steps on each half of the batch, combined as
+    the ranks' sum combines them: each half weighted by its share of the
+    global normalizer (its targets for the detection losses, its lines for
+    CTC and the cardinality error). Returns the loss, the terms and the
+    path of the combined gradient."""
+    steps = [ddp_records(d, 1)[0]["steps"][0] for d in half_dirs]
+    if mode == "detection":
+        nb = [max(1.0, float(np.asarray(batch["valid"])[4 * h:4 * h + 4].sum())) for h in range(2)]
+    else:
+        nb = [4.0, 4.0]
+    w = [n / sum(nb) for n in nb]
+    terms = {k: sum((0.5 if k == "cardinality_error" else wh) * s[k] for wh, s in zip(w, steps))
+             for k in steps[0] if k not in ("ms", "launches", "skipped", "grad_norm")}
+    out = os.path.join(os.path.dirname(half_dirs[0]), f"{mode}_halves_grads.npz")
+    with np.load(os.path.join(half_dirs[0], "grads.npz")) as a, \
+            np.load(os.path.join(half_dirs[1], "grads.npz")) as b:
+        np.savez(out, **{k: w[0] * a[k] + w[1] * b[k] for k in a.files})
+    return terms, out
+
+
+def ddp_records(out, world):
+    records = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as fh:
+            records.append(json.load(fh))
+    return records
+
+
+def grads_within(a_path, b_path):
+    """Max |a - b| over every gradient leaf, b's global norm, and the leaf
+    that holds the max."""
+    with np.load(a_path) as a, np.load(b_path) as b:
+        if set(a.files) != set(b.files):
+            raise AssertionError("the two runs' gradients have different leaves")
+        err = {k: float(np.abs(a[k] - b[k]).max()) for k in b.files}
+        norm = math.sqrt(sum(float((b[k].astype(np.float64) ** 2).sum()) for k in b.files))
+    leaf = max(err, key=err.get)
+    return err[leaf], norm, leaf
+
+
+def ulp_params(src, dst):
+    """The checkpoint in float32 with every weight moved one float32 ulp
+    up: a change of the size of one rounding."""
+    up = np.array(np.inf, np.float32)
+    with np.load(src) as z:
+        np.savez(dst, **{k: np.nextafter(z[k].astype(np.float32), up)
+                         if z[k].dtype.kind == "f" else z[k] for k in z.files})
+
+
+@contextlib.contextmanager
+def recorded_selections():
+    """The two-stage selection of every forward in the block: the scores
+    and indices of each call of the transformer's top_k_stable, on the
+    host, in order."""
+    from dtlr_tpu_torch.models import transformer
+
+    calls, plain = [], transformer.top_k_stable
+
+    def top_k(scores, k):
+        idx = plain(scores, k)
+        calls.append((scores.detach().float().cpu(), idx.cpu()))
+        return idx
+
+    transformer.top_k_stable = top_k
+    try:
+        yield calls
+    finally:
+        transformer.top_k_stable = plain
+
+
+def selection_moves(whole, halves):
+    """One process's first selection on the whole batch against its
+    selections on each half (rows 0-3, 4-7): the largest difference of a
+    proposal's score, the lines and slots whose selected proposals differ,
+    and the largest distance of a proposal that moved from the whole
+    batch's cut (its k-th score)."""
+    s, idx = whole
+    moves = {"score_max_abs_diff": 0.0, "lines_moved": 0, "slots_moved": 0,
+             "moved_max_gap_to_cut": 0.0}
+    for h, (s_h, idx_h) in enumerate(halves):
+        rows = slice(4 * h, 4 * h + 4)
+        valid = s[rows] > -1e8
+        moves["score_max_abs_diff"] = max(moves["score_max_abs_diff"],
+                                          float((s[rows] - s_h).abs()[valid].max()))
+        for b, (a, c) in enumerate(zip(idx[rows], idx_h)):
+            a, c = set(a.tolist()), set(c.tolist())
+            if a == c:
+                continue
+            line = s[4 * h + b]
+            cut = float(line[idx[4 * h + b, -1]])
+            moves["lines_moved"] += 1
+            moves["slots_moved"] += len(a - c)
+            moves["moved_max_gap_to_cut"] = max(moves["moved_max_gap_to_cut"], max(
+                abs(float(line[j]) - cut) for j in a ^ c))
+    return moves
+
+
+def resize_backward_times(card):
+    """The windowed encoder's resizes of one layer at the flagship's levels
+    (each level to its neighbours' sizes; B=8, C=256, float32, laid out as
+    the encoder lays them out), forward and backward, with CUDA's backward
+    (a scatter of atomic adds) and with _MatrixResize's (two matrix
+    products, the encoder's): ms per layer (cuda_ms,
+    RESIZE_REPS back-to-back layers, where the host's work bounds it), the
+    card's own ms per layer (the kernels' device time under
+    torch.profiler) and the gradients' distance."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dtlr_tpu_torch.models.windowed_encoder import _MatrixResize, _interpolate
+
+    gen = torch.Generator("cuda:0").manual_seed(0)
+    levels = LEVELS[2720]
+    xs = [torch.randn(8, h, w, 256, device="cuda", generator=gen).permute(0, 3, 1, 2)
+          .requires_grad_() for h, w in levels]
+    pairs = [(i, j) for i in range(len(levels)) for j in (i - 1, i + 1)
+             if 0 <= j < len(levels)]
+    gys = [torch.randn(8, 256, *levels[j], device="cuda", generator=gen) for _, j in pairs]
+
+    def layer(resize):
+        outs = [resize(xs[i], *levels[j]) for i, j in pairs]
+        return torch.autograd.grad(outs, xs, gys)
+
+    def matrix(x, h, w):
+        return _MatrixResize.apply(x, h, w)
+
+    def device_ms(resize):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(RESIZE_REPS):
+                layer(resize)
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / RESIZE_REPS
+
+    atomic_g, matrix_g = layer(_interpolate), layer(matrix)
+    err = max(float((a - b).abs().max()) / float(a.abs().max())
+              for a, b in zip(atomic_g, matrix_g))
+    record = {"phase": "ddp", "part": "resize_backward", "resizes_per_layer": len(pairs),
+              "atomic_ms": cuda_ms(lambda: layer(_interpolate), calls=RESIZE_REPS),
+              "matrix_ms": cuda_ms(lambda: layer(matrix), calls=RESIZE_REPS),
+              "atomic_device_ms": device_ms(_interpolate), "matrix_device_ms": device_ms(matrix),
+              "grad_rel_err": err, "card": card}
+    record["ok"] = err <= 1e-6
+    emit(record)
+    return record
+
+
+def step_summary(rec):
+    """A rank's record: ms per step after the first, peak memory, the
+    all-reduce alone, the launches per step."""
+    ms = [s["ms"] for s in rec["steps"]]
+    return {"rank": rec["rank"], "world_size": rec["world_size"], "backend": rec["backend"],
+            "device": rec["device"], "lines": rec["lines_per_rank"], "ms_per_step": ms,
+            "ms_per_step_after_first": float(np.median(ms[1:])),
+            "allreduce_ms": rec["allreduce_ms"], "grad_bytes": rec["grad_bytes"],
+            "peak_memory_bytes": rec["peak_memory_bytes"],
+            "launches_per_step": [s["launches"] for s in rec["steps"]]}
+
+
+def pretrain_entry_run(out, torchrun):
+    """python -m dtlr_tpu_torch.train.pretrain (two bf16 steps of the
+    recipe at B=8 on the detection fixture, a save, the evaluations), as a
+    child process, under torchrun --nproc_per_node 1 or without it."""
+    from dtlr_tpu_torch.parallel import launch
+
+    args = ["--params", DETECT_PARAMS, "--lines", DETECT_LINES, "--output_dir", out,
+            "--epochs", "1", "--steps_per_epoch", "2", "--deterministic"]
+    module = "dtlr_tpu_torch.train.pretrain"
+    cmd = (launch.torchrun_command(1, module, args) if torchrun
+           else [sys.executable, "-m", module, *args])
+    t0 = time.perf_counter()
+    done = launch.run_child(cmd, timeout=DDP_CHILD_TIMEOUT, cwd=REPO)
+    if done.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} failed ({done.returncode}):\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def phase_ddp(card):
+    """Data parallelism on the card (see the module docstring)."""
+    import tempfile
+
+    from dtlr_tpu_torch.parallel import launch
+    from dtlr_tpu_torch.scripts import ddp_check, dryrun_multichip
+    from dtlr_tpu_torch.train import checkpoints as ckpt
+    from dtlr_tpu_torch.train.config import RECIPE, RECIPE_DETECTION
+
+    records, launches = [resize_backward_times(card)], {}
+    with tempfile.TemporaryDirectory() as workdir:
+        # (a) the entry point at world size 1 over NCCL against the same
+        # command without torchrun, and (c) the port's dry run over two gloo
+        # ranks on the card: four processes side by side (each holds the
+        # card alone for none of its time, so their ms are not timings of
+        # record), their results read below
+        t0 = time.perf_counter()
+        names = {"plain": False, "torchrun_nccl_w1": True}
+        with ThreadPoolExecutor(len(names) + 1) as pool:
+            started = {name: pool.submit(pretrain_entry_run, os.path.join(workdir, name),
+                                         torchrun) for name, torchrun in names.items()}
+            dryrun = pool.submit(dryrun_multichip.dryrun_multichip, 2, device="cuda:0",
+                                 backend="gloo", timeout=DDP_CHILD_TIMEOUT)
+            seconds_of = {name: f.result() for name, f in started.items()}
+            dryrun_loss = dryrun.result()
+        side_by_side_s = time.perf_counter() - t0
+        runs = {}
+        for name, seconds in seconds_of.items():
+            out = os.path.join(workdir, name)
+            with open(os.path.join(out, "log.txt")) as fh:
+                log = [json.loads(line) for line in fh]
+            train = log[0]
+            runs[name] = {"seconds": seconds, "log_lines": len(log),
+                          "files": sorted(f for f in os.listdir(out) if not os.path.isdir(
+                              os.path.join(out, f))),
+                          "checkpoint_steps": ckpt._steps(os.path.join(out, "checkpoint")),
+                          "state_sha256": ckpt.state_sha256(
+                              ckpt.restore_checkpoint(os.path.join(out, "checkpoint"))),
+                          "ms_per_step_epoch": 1e3 * train["epoch_time"] / train["iterations"],
+                          "loss": train["loss"]}
+        plain, nccl = runs["plain"], runs["torchrun_nccl_w1"]
+        with np.load(os.path.join(workdir, "plain", "params.npz")) as a, \
+                np.load(os.path.join(workdir, "torchrun_nccl_w1", "params.npz")) as b:
+            same_npz = set(a.files) == set(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files)
+        record = {"phase": "ddp", "part": "a_entry_point_nccl_w1", "runs": runs,
+                  "state_bit_for_bit": plain["state_sha256"] == nccl["state_sha256"],
+                  "params_npz_bit_for_bit": same_npz, "card": card,
+                  "seconds_with_c_side_by_side": side_by_side_s}
+        record["ok"] = (record["state_bit_for_bit"] and same_npz
+                        and nccl["files"] == plain["files"]
+                        and "info.txt" in nccl["files"]
+                        and not any(f.startswith("info_rank") for f in nccl["files"])
+                        and nccl["log_lines"] == plain["log_lines"]
+                        and nccl["checkpoint_steps"] == plain["checkpoint_steps"] == [2])
+        records.append(record)
+        emit(record)
+
+        # (b) two ranks on the one card over gloo against one process on
+        # the whole batch, fp32, DDP_STEPS steps of each train step
+        n_dec = 6
+        per_step = {"detection": {"mha_box": n_dec, "mha": 0, "mha_masked": n_dec},
+                    "ctc": {"mha_box": n_dec, "mha": n_dec, "mha_masked": 0}}
+        for mode, params, lines, max_targets in (
+                ("detection", DETECT_PARAMS, DETECT_LINES, RECIPE_DETECTION.max_targets),
+                ("ctc", PARAMS, LINES, RECIPE.max_targets)):
+            t0 = time.perf_counter()
+            paths, batch = ddp_batches(lines, max_targets, workdir, mode)
+            args = ["--mode", mode, "--params", params, "--compute_dtype", "float32"]
+            one_dir = os.path.join(workdir, f"{mode}_one")
+            with recorded_selections() as whole_sel:
+                ddp_check.main(args + ["--batches", paths["whole"], "--out", one_dir,
+                                       "--device", "cuda:0"])
+            torch.cuda.empty_cache()
+            one = ddp_records(one_dir, 1)[0]
+            # one process on each half, combined: what the ranks' sum must give
+            draws = half_draws(batch, workdir) if mode == "detection" else None
+            half_dirs, half_sel = [], []
+            for h in range(2):
+                half_dirs.append(os.path.join(workdir, f"{mode}_half{h}"))
+                with recorded_selections() as sel:
+                    ddp_check.main(args + ["--batches", paths[h], "--out", half_dirs[h],
+                                           "--device", "cuda:0"]
+                                   + (["--cdn_draws", draws[h]] if draws else []))
+                half_sel.append(sel[0])
+                torch.cuda.empty_cache()
+            halves, halves_grads = halves_combined(mode, batch, half_dirs)
+            # that reference against one process on the whole batch: the
+            # batch's shape alone
+            shape_worst, norm, shape_leaf = grads_within(halves_grads,
+                                                         os.path.join(one_dir, "grads.npz"))
+            shape_loss = abs(halves["loss"] - one["steps"][0]["loss"]) / abs(one["steps"][0]["loss"])
+            # beside it, one process on the whole batch with every weight
+            # one ulp up: how far a change of one rounding moves the step
+            ulp_dir = os.path.join(workdir, f"{mode}_ulp")
+            ulp_path = os.path.join(workdir, f"{mode}_ulp_params.npz")
+            ulp_params(params, ulp_path)
+            ddp_check.main(["--mode", mode, "--params", ulp_path, "--compute_dtype", "float32",
+                            "--batches", paths["whole"], "--out", ulp_dir, "--device", "cuda:0"])
+            os.remove(ulp_path)
+            torch.cuda.empty_cache()
+            ulp_worst, _, ulp_leaf = grads_within(os.path.join(ulp_dir, "grads.npz"),
+                                                  os.path.join(one_dir, "grads.npz"))
+            ulp_loss = ddp_records(ulp_dir, 1)[0]["steps"][0]["loss"]
+            worlds = {"gloo_w2": (2, ["--device", "cuda:0", "--backend", "gloo"])}
+            if mode == "detection":
+                worlds["nccl_w1"] = (1, ["--device", "cuda"])
+            result = {"phase": "ddp", "part": f"b_{mode}_fp32", "steps": DDP_STEPS,
+                      "global_batch": one["lines_per_rank"],
+                      "one_process": step_summary(one),
+                      "halves_vs_one_process": {
+                          "loss_rel": shape_loss, "grad_err_of_norm": shape_worst / norm,
+                          "worst_leaf": shape_leaf,
+                          "selection": selection_moves(whole_sel[0], half_sel)},
+                      "one_ulp_vs_one_process": {
+                          "loss_rel": abs(ulp_loss - one["steps"][0]["loss"])
+                          / abs(one["steps"][0]["loss"]),
+                          "grad_err_of_norm": ulp_worst / norm, "worst_leaf": ulp_leaf},
+                      "card": card}
+            ok = shape_loss <= SHAPE_LOSS_REL and shape_worst <= SHAPE_GRAD_REL * norm
+            for name, (world, extra) in worlds.items():
+                out = os.path.join(workdir, f"{mode}_{name}")
+                done = launch.launch(world, "dtlr_tpu_torch.scripts.ddp_check",
+                                     args + extra + ["--batches", paths["whole"], "--out", out],
+                                     timeout=DDP_CHILD_TIMEOUT, cwd=REPO)
+                if done.returncode != 0:
+                    raise AssertionError(f"ddp_check {mode} {name} failed ({done.returncode}):"
+                                         f"\n{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+                ranks = ddp_records(out, world)
+                first = ranks[0]["steps"][0]
+                worst, _, _ = grads_within(os.path.join(out, "grads.npz"),
+                                           os.path.join(one_dir, "grads.npz"))
+                vs_halves, _, _ = grads_within(os.path.join(out, "grads.npz"), halves_grads)
+                loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                            for a, b in zip(ranks[0]["steps"], one["steps"])]
+                term_rel = {k: abs(first[k] - v) / max(abs(v), 1e-6) for k, v in halves.items()}
+                agree = all(r["digests"] == ranks[0]["digests"] for r in ranks)
+                counted = all(s["launches"] == per_step[mode] for r in ranks for s in r["steps"])
+                part = {"ranks": [step_summary(r) for r in ranks], "ranks_bit_for_bit": agree,
+                        "digests_equal_one_process": ranks[0]["digests"] == one["digests"],
+                        "loss_rel_per_step": loss_rel,
+                        "vs_halves": {"term_rel_max": max(term_rel.values()),
+                                      "grad_err_of_norm": vs_halves / norm},
+                        "vs_one_process": {"loss_rel": loss_rel[0],
+                                           "grad_err_of_norm": worst / norm},
+                        "grad_global_norm": norm, "launches_as_counted": counted,
+                        "skipped": [s["skipped"] for s in ranks[0]["steps"]]}
+                # two ranks: one process's step on each rank's rows; one
+                # rank: one process's step on the whole batch (the first
+                # step; later ones drift apart on the card's atomics)
+                if world == 1:
+                    exact = loss_rel[0] <= DDP_REL and worst <= DDP_REL * norm
+                else:
+                    exact = max(term_rel.values()) <= DDP_REL and vs_halves <= DDP_REL * norm
+                part["ok"] = agree and counted and not any(part["skipped"]) and exact
+                ok = ok and part["ok"]
+                result[name] = part
+                for r in ranks:
+                    launches[f"ddp_{mode}_fp32_{name}_rank{r['rank']}_{DDP_STEPS}_steps"] = {
+                        k: sum(s["launches"][k] for s in r["steps"]) for k in per_step[mode]}
+            result["ok"] = ok and all(s["launches"] == per_step[mode] for s in one["steps"])
+            result["seconds"] = time.perf_counter() - t0
+            records.append(result)
+            emit(result)
+
+        # (c), run beside (a) above
+        record = {"phase": "ddp", "part": "c_dryrun_multichip_gloo_w2", "loss": dryrun_loss,
+                  "ok": math.isfinite(dryrun_loss)}
+        records.append(record)
+        emit(record)
+    failed = [r["part"] for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"ddp phase checks failed: {failed}")
+    return records, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2297,6 +2737,11 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    ddp_recs, ddp_launches = phase_ddp(card)
+    emit({"phase": "ddp", "parts": [r["part"] for r in ddp_recs],
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
           "seconds": time.perf_counter() - t0})
@@ -2343,7 +2788,8 @@ def main() -> int:
                          "ctc_train_fp32_first_step": train_fp32,
                          "detect_fp32_first_step": detect_fp32,
                          "deform_read_fp32_forward": deform_launches["fp32"],
-                         "deform_read_shared_fp32_forward": deform_launches["shared_fp32"]}}
+                         "deform_read_shared_fp32_forward": deform_launches["shared_fp32"],
+                         **ddp_launches}}
     by_path = {name + suffix: {path: counts[name] for path, counts in paths[dt].items()}
                for name in flash_attn.KERNELS
                for suffix, dt in (("", "bfloat16"), ("_fp32", "float32"))}

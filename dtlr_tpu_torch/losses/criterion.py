@@ -7,15 +7,21 @@ on the fixed positive slots.
 Targets are padded: labels (B, N), boxes (B, N, 4) cxcywh, valid (B, N).
 An assignment is (B, N): the query of each target, -1 for invalid
 targets (ops/matcher.py).
+
+Under data parallelism (a process group, ``parallel/mesh.py``) the
+terms are normalized by the global batch's target count, summed over the
+ranks, so that each rank's terms are its share of the global ones: their
+sum over the ranks is one process's loss on the whole batch.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..ops.matcher import match_outputs
+from ..parallel import mesh
 from ..utils.boxes import box_cxcywh_to_xyxy, elementwise_generalized_box_iou
 
 
@@ -59,12 +65,16 @@ def box_losses(pred_boxes: torch.Tensor, assign: torch.Tensor, tgt_boxes: torch.
 
 
 @torch.no_grad()
-def cardinality_error(pred_logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def cardinality_error(pred_logits: torch.Tensor, valid: torch.Tensor,
+                      lines: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Logging only (reference :602-616): predictions whose argmax is not
-    the last class, against the target count."""
+    the last class, against the target count; the mean over the batch's
+    lines, or the sum over them divided by ``lines`` (a data-parallel
+    rank's share of the global batch's mean)."""
     K = pred_logits.shape[-1]
     card_pred = (pred_logits.argmax(-1) != K - 1).sum(1)
-    return (card_pred.float() - valid.sum(1).float()).abs().mean()
+    err = (card_pred.float() - valid.sum(1).float()).abs()
+    return err.mean() if lines is None else err.sum() / lines
 
 
 def dn_assignment(n_max: int, num_groups: int, device=None) -> torch.Tensor:
@@ -88,7 +98,17 @@ def detection_loss(outputs: Dict, targets: Dict, num_classes: int,
     boxes = targets["boxes"].float()
     valid = targets["valid"].bool()
     B, N = labels.shape
-    num_boxes = valid.sum().float().clamp(min=1.0)
+    lines = None
+    if mesh.distributed():
+        # the global batch's target count and lines (JAX's num_boxes is a
+        # sum over the sharded batch, dtlr_tpu/losses/criterion.py:127):
+        # each rank's terms are then its share of the global terms
+        counts = mesh.all_reduce_sum(torch.stack([valid.sum().float(),
+                                                  torch.tensor(float(B), device=valid.device)]))
+        num_boxes = counts[0].clamp(min=1.0)
+        lines = counts[1] if mesh.world_size() > 1 else None
+    else:
+        num_boxes = valid.sum().float().clamp(min=1.0)
 
     def standard_losses(out, assign, nb):
         d = {"loss_ce": focal_label_loss(out["pred_logits"], assign, labels, valid, nb,
@@ -106,7 +126,7 @@ def detection_loss(outputs: Dict, targets: Dict, num_classes: int,
 
     losses: Dict[str, torch.Tensor] = {}
     losses.update(standard_losses(outputs, assignments[0], num_boxes))
-    losses["cardinality_error"] = cardinality_error(outputs["pred_logits"], valid)
+    losses["cardinality_error"] = cardinality_error(outputs["pred_logits"], valid, lines)
     for i, out in enumerate(aux):
         for k, v in standard_losses(out, assignments[1 + i], num_boxes).items():
             losses[f"{k}_{i}"] = v

@@ -20,6 +20,8 @@ The noise comes from four draws, as JAX splits its key four ways
 random label per slot, a sign and a magnitude per box coordinate.
 ``draw_cdn_noise`` makes them from a ``torch.Generator``; ``prepare_cdn``
 also takes them as given (``CdnDraws``), so that a test can hand it JAX's.
+A data-parallel rank draws the global batch's and keeps its rows
+(``rows``, ``take_rows``): JAX draws once for the sharded global batch.
 """
 
 from __future__ import annotations
@@ -80,9 +82,13 @@ def cdn_attn_mask(num_queries: int, meta: CdnMeta,
 
 def draw_cdn_noise(batch: int, n_max: int, dn_number: int, num_classes: int,
                    generator: Optional[torch.Generator] = None,
-                   device: Optional[torch.device] = None) -> CdnDraws:
+                   device: Optional[torch.device] = None,
+                   rows: Optional[slice] = None) -> CdnDraws:
     """The four draws of one ``prepare_cdn`` call from ``generator`` (on
-    its device; the default generator without one), moved to ``device``."""
+    its device; the default generator without one), moved to ``device``.
+    ``rows``: a data-parallel rank's rows of the global batch of
+    ``batch`` lines, drawn whole as one process draws it and then cut, so
+    that the ranks together draw what one process draws."""
     G = cdn_num_groups(dn_number, n_max)
     gen_dev = generator.device if generator is not None else device
     shape = (batch, G, 2, n_max)
@@ -91,7 +97,13 @@ def draw_cdn_noise(batch: int, n_max: int, dn_number: int, num_classes: int,
                           dtype=torch.int32)
     sign = torch.randint(0, 2, shape + (4,), generator=generator, device=gen_dev).float() * 2 - 1
     mag = torch.rand(shape + (4,), generator=generator, device=gen_dev)
-    return CdnDraws(*(t.to(device) for t in (flip, label, sign, mag)))
+    draws = CdnDraws(*(t.to(device) for t in (flip, label, sign, mag)))
+    return draws if rows is None else take_rows(draws, rows)
+
+
+def take_rows(draws: CdnDraws, rows: slice) -> CdnDraws:
+    """The draws of a batch's ``rows``."""
+    return CdnDraws(*(t[rows] for t in draws))
 
 
 def prepare_cdn(labels: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,

@@ -16,6 +16,7 @@ float32.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -51,13 +52,47 @@ def window_attention(q, k, v, key_valid, n_heads: int,
     return out.transpose(1, 2).reshape(Bw, N, C)
 
 
+def _interpolate(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False, antialias=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """(n_out, n_in): the resize along one axis, as a matrix (the resize
+    of each unit vector)."""
+    eye = torch.eye(n_in, device=device, dtype=torch.float32).view(n_in, 1, 1, n_in)
+    return _interpolate(eye, 1, n_out).view(n_in, n_out).t().contiguous()
+
+
+class _MatrixResize(torch.autograd.Function):
+    """The antialiased resize whose backward is the transpose of its two
+    one-axis matrices (two matrix products, as JAX's resize contracts
+    them): torch's own gradient within float32 rounding, in a fixed order.
+    torch's backward scatters atomic adds on the card, which has no
+    deterministic form (it raises under
+    ``torch.use_deterministic_algorithms``), so a step there could not
+    repeat bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, h, w):
+        ctx.in_hw = x.shape[-2:]
+        return _interpolate(x, h, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (H, W), (h, w) = ctx.in_hw, gy.shape[-2:]
+        a_h, a_w = _axis_weights(H, h, gy.device), _axis_weights(W, w, gy.device)
+        # (B, C, h, w) @ (w, W), then the rows: (B, C, W, h) @ (h, H)
+        gx = (gy @ a_w).transpose(-1, -2) @ a_h
+        return gx.transpose(-1, -2), None, None
+
+
 def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B, h0, w0, C) -> (B, h, w, C), bilinear with half-pixel centres
     and antialiasing: ``jax.image.resize(x, ..., "bilinear")``. Computed
     in float32 (torch has no bf16 antialiased resize on the CPU) and
     returned in the input's dtype, as JAX returns it."""
-    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
-                      align_corners=False, antialias=True)
+    y = _MatrixResize.apply(x.permute(0, 3, 1, 2).float(), h, w)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 

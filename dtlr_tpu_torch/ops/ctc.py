@@ -12,7 +12,7 @@ those frames.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.nn import functional as F
@@ -42,7 +42,7 @@ def interleave_blanks(probs: torch.Tensor) -> torch.Tensor:
 
 
 def ctc_loss(pred_logits: torch.Tensor, pred_boxes: torch.Tensor, labels: torch.Tensor,
-             label_valid: torch.Tensor, eps: float = 0.003
+             label_valid: torch.Tensor, eps: float = 0.003, lines: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean CTC loss of the lines and the probs (B, nq, K+1).
 
@@ -58,7 +58,9 @@ def ctc_loss(pred_logits: torch.Tensor, pred_boxes: torch.Tensor, labels: torch.
     (T/2)*log1p(K*1e-5) to land on this same value; torch's CTC takes the
     log-probabilities as they are, so nothing is subtracted. On CUDA the
     2-D targets take torch's native kernel (cuDNN's takes 1-D targets
-    only)."""
+    only). ``lines``: the count the lines' sum is divided by, in place of
+    the mean over this batch's lines (a data-parallel rank's share of the
+    mean over the global batch, JAX's mean over the sharded batch)."""
     probs = blank_synthesis(pred_logits, pred_boxes, eps)
     frames = interleave_blanks(probs)
     B, T, _ = frames.shape
@@ -71,5 +73,6 @@ def ctc_loss(pred_logits: torch.Tensor, pred_boxes: torch.Tensor, labels: torch.
     per_line = F.ctc_loss(log_probs, targets, input_lengths, target_lengths, blank=0,
                           reduction="none", zero_infinity=True)
     per_line = torch.where(torch.isfinite(per_line), per_line, torch.zeros_like(per_line))
-    loss = (per_line / target_lengths.clamp(min=1)).mean()
+    per_line = per_line / target_lengths.clamp(min=1)
+    loss = per_line.mean() if lines is None else per_line.sum() / lines
     return loss, probs

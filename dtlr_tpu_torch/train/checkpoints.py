@@ -14,11 +14,13 @@ checkpoints (counterpart of dtlr_tpu/train/checkpoints.py:106-263).
 - ``save_checkpoint`` / ``latest_step`` / ``restore_checkpoint``: the
   whole train state (parameters, optimizer state, step, EMA, epoch) with
   ``torch.save``, one file per step under a directory, the newest
-  ``max_to_keep`` kept (in place of JAX's orbax manager).
+  ``max_to_keep`` kept (in place of JAX's orbax manager); ``state_sha256``
+  hashes one, so that data-parallel ranks can show they hold the same.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 import os
 import re
@@ -171,7 +173,7 @@ def surgery_class_heads(tree: Mapping[str, np.ndarray], old_charset: Sequence[st
 
 # ---------------------------------------------------------- train states
 
-def _step_file(ckpt_dir: str, step: int) -> str:
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"state_{step:08d}.pt")
 
 
@@ -187,12 +189,12 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Mapping, max_to_keep: int =
     step's file in ``ckpt_dir``, written to a temporary name and renamed;
     older files past ``max_to_keep`` are removed. Returns the path."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = _step_file(ckpt_dir, step)
+    path = checkpoint_path(ckpt_dir, step)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(_to_cpu(state), tmp)
     os.replace(tmp, path)
     for old in _steps(ckpt_dir)[:-max_to_keep]:
-        os.remove(_step_file(ckpt_dir, old))
+        os.remove(checkpoint_path(ckpt_dir, old))
     return path
 
 
@@ -202,6 +204,27 @@ def _to_cpu(obj):
     if isinstance(obj, Mapping):
         return {k: _to_cpu(v) for k, v in obj.items()}
     return obj
+
+
+def state_sha256(state) -> str:
+    """sha256 of a train state (``save_checkpoint``'s dict): every tensor's
+    bytes and every other leaf's repr, keys in sorted order, so that two
+    states hash alike exactly when they are equal bit for bit."""
+    h = hashlib.sha256()
+
+    def walk(obj):
+        if isinstance(obj, torch.Tensor):
+            h.update(str(obj.dtype).encode())
+            h.update(obj.detach().cpu().contiguous().numpy().tobytes())
+        elif isinstance(obj, Mapping):
+            for k in sorted(obj):
+                h.update(repr(k).encode())
+                walk(obj[k])
+        else:
+            h.update(repr(obj).encode())
+
+    walk(state)
+    return h.hexdigest()
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -215,4 +238,4 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None) -> Optional[di
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         return None
-    return torch.load(_step_file(ckpt_dir, step), map_location="cpu", weights_only=True)
+    return torch.load(checkpoint_path(ckpt_dir, step), map_location="cpu", weights_only=True)

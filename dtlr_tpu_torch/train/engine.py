@@ -13,12 +13,22 @@ bool, ``texts``), or dicts of the same arrays (``collate`` makes one of
 committed lines, as they are, for the checks of a first step). The loop
 copies each to the device and reads the step's metrics back only every
 ``print_freq`` steps.
+
+Data parallelism (``torchrun``, ``parallel/mesh.py``): ``batch_size`` is
+the global batch, as JAX's mesh shards it, and the world size must
+divide it (JAX takes the largest device prefix that divides it,
+dtlr_tpu/train/engine.py:110-119; processes that are already launched
+cannot). Every rank reads the same global batches and keeps its rows;
+the steps sum the gradients over the ranks. The evaluations combine
+every rank's lines before the metrics, so they equal one process's.
+Rank 0 alone writes ``log.txt``, ``info.txt`` and the checkpoints (the
+other ranks log to ``info_rank{r}.txt``), and every rank restores the
+same checkpoint after a barrier.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import time
 import types
@@ -36,6 +46,8 @@ from ..losses.criterion import build_weight_dict, detection_loss
 from ..models.dino import FLAGSHIP, DinoConfig, build_dino
 from ..ops.ctc import ctc_loss
 from ..ops.pixels import prep_images
+from ..parallel import mesh
+from ..utils.logging_utils import MetricLogger, append_log_line, setup_logger
 from ..weights import load_into
 from . import checkpoints as ckpt_lib
 from .config import TrainConfig
@@ -111,6 +123,35 @@ def to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
             for k in ("images", "valid_hw", "labels", "valid", "boxes") if k in batch}
 
 
+def rank_rows(batch, train: bool = True) -> Dict[str, object]:
+    """This rank's rows of a global batch, as arrays (all of it in one
+    process). A training batch must split evenly over the ranks; an
+    evaluation batch needs a line for every rank."""
+    arrays = batch_to_arrays(batch)
+    world = mesh.world_size()
+    if world == 1:
+        return arrays
+    n = len(arrays["images"])
+    if (train and n % world) or n < world:
+        raise ValueError(f"a batch of {n} lines does not split over {world} ranks"
+                         + (" evenly" if train else ""))
+    return mesh.shard_batch(arrays, mesh.rank(), world)
+
+
+def check_batch_size(batch_size: int, world: int) -> None:
+    """The global batch splits evenly over the ranks, or this raises,
+    naming the batch sizes that would split and the world sizes that
+    split this one."""
+    if batch_size % world == 0:
+        return
+    near = sorted({max(world, (batch_size // world) * world), (batch_size // world + 1) * world})
+    divisors = [w for w in range(1, batch_size + 1) if batch_size % w == 0]
+    raise ValueError(f"batch_size {batch_size} is the global batch, split evenly over the "
+                     f"ranks, and {world} ranks do not divide it: use batch_size "
+                     f"{' or '.join(map(str, near))} (a multiple of {world}), or launch "
+                     f"{divisors} processes")
+
+
 def detection_weight_dict(cfg, model_cfg: DinoConfig) -> Dict[str, float]:
     """``build_weight_dict`` of the training settings with the model's
     decoder depth and CDN switch."""
@@ -124,6 +165,9 @@ class Trainer:
                  mode: str = "ctc", seed: int = 0, charset: Optional[Sequence[str]] = None):
         if mode not in MODES:
             raise ValueError(f"mode is one of {MODES}, got {mode!r}")
+        #: this process's rank and the ranks' count (1 without a group)
+        self.rank, self.world = mesh.rank(), mesh.world_size()
+        check_batch_size(cfg.batch_size, self.world)
         self.cfg = cfg
         #: the labels' characters, for the training CER (train_epoch)
         self.charset = charset
@@ -132,6 +176,7 @@ class Trainer:
         self.output_dir = output_dir
         self.device = resolve_device(device)
         os.makedirs(output_dir, exist_ok=True)
+        self.logger = setup_logger(output_dir, "dtlr_tpu_torch", self.rank)
         self.state: Optional[TrainState] = None
         #: the mode's train step; ``step_fn.loss_fn`` is its forward and loss
         self.step_fn = None
@@ -146,14 +191,13 @@ class Trainer:
         self.epoch = 0
 
     def log(self, msg: str) -> None:
-        line = f"[{time.strftime('%H:%M:%S')} dtlr_tpu_torch]: {msg}"
-        print(line, flush=True)
-        with open(os.path.join(self.output_dir, "info.txt"), "a") as fh:
-            fh.write(line + "\n")
+        """To stdout and the rank's info file."""
+        self.logger.info(msg)
 
     def append_log_line(self, record: Mapping) -> None:
-        with open(os.path.join(self.output_dir, "log.txt"), "a") as fh:
-            fh.write(json.dumps(record) + "\n")
+        """One JSON line of ``log.txt``, written by rank 0."""
+        if self.rank == 0:
+            append_log_line(self.output_dir, dict(record))
 
     # ------------------------------------------------------------ build
     def build(self, params: Mapping[str, np.ndarray], head_only: bool = False) -> None:
@@ -188,7 +232,7 @@ class Trainer:
     def step(self, batch, mark=None) -> Dict[str, torch.Tensor]:
         """One train step on a batch; the metrics stay on
         the device. ``mark`` goes to the detection step (its phases' ends)."""
-        arrays = to_device(batch, self.device)
+        arrays = to_device(rank_rows(batch), self.device)
         if self.mode == "detection":
             self.state, metrics = self.step_fn(self.state, arrays, self.cdn_generator, mark)
         else:
@@ -207,33 +251,26 @@ class Trainer:
             raise RuntimeError("call build() first")
         self.cdn_generator.manual_seed(self.seed + self.epoch)
         print_freq = self.cfg.print_freq
-        sums: Dict[str, float] = {}
-        reads: Dict[str, int] = {}
-
-        def add(values):
-            for k, v in values.items():
-                sums[k] = sums.get(k, 0.0) + v
-                reads[k] = reads.get(k, 0) + 1
-
+        mlog = MetricLogger()
         t0 = time.time()
         n_it = 0
-        for i, batch in enumerate(batches):
+        for i, batch in enumerate(mesh.lockstep(batches)):
             if 0 < max_iterations <= i:
                 break
             m = self.step(batch)
             n_it += 1
             if train_cer_every > 0 and i % train_cer_every == 0 and self.charset:
-                add(self.batch_cer(batch))
+                mlog.update(**self.batch_cer(batch))
             if i % print_freq == 0:
                 # without CDN (use_dn False) a detection step has no DN terms
                 host = {k: float(m[k]) for k in LOGGED[self.mode] if k in m}
-                add(host)
+                mlog.update(**host)
                 self.log(f"epoch {self.epoch} it {i}: "
                          + " ".join(f"{k}={v:.4f}" for k, v in host.items()))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.time() - t0
-        stats = {k: v / reads[k] for k, v in sums.items()}
+        stats = {k: m.global_avg for k, m in mlog.meters.items()}
         stats.update(epoch_time=dt, iterations=n_it, it_per_sec=n_it / max(dt, 1e-9))
         self.append_log_line({"epoch": self.epoch, **stats})
         self.epoch += 1
@@ -241,12 +278,14 @@ class Trainer:
 
     @torch.no_grad()
     def batch_cer(self, batch) -> Dict[str, float]:
-        """The greedy CER and WER of one batch under the current weights."""
-        arrays = to_device(batch, self.device)
+        """The greedy CER and WER of one batch under the current weights
+        (every rank's lines of it)."""
+        arrays = to_device(rank_rows(batch, train=False), self.device)
         out = self.state.model(prep_images(arrays["images"], arrays["valid_hw"]),
                                arrays["valid_hw"])
         preds = [labels_to_text(l, self.charset)
                  for l in greedy_labels(greedy_decode(out["pred_logits"], out["pred_boxes"]))]
+        preds = [p for part in mesh.all_gather_object(preds) for p in part]
         texts = list(batch_to_arrays(batch)["texts"])
         return {"cer": metrics.corpus_cer(preds, texts), "wer": metrics.corpus_wer(preds, texts)}
 
@@ -260,22 +299,20 @@ class Trainer:
         cfg = self.cfg
         model = self.state.model
         model.eval()
-        sums: Dict[str, float] = {}
-        n = 0
-        for batch in batches:
-            arrays = to_device(batch, self.device)
+        mlog = MetricLogger()
+        keys = ("loss_ce", "loss_bbox", "loss_giou")
+        for batch in mesh.lockstep(batches):
+            arrays = to_device(rank_rows(batch, train=False), self.device)
             targets = {k: arrays[k] for k in ("labels", "boxes", "valid")}
             out = model(prep_images(arrays["images"], arrays["valid_hw"]), arrays["valid_hw"])
             total, losses = detection_loss(
                 out, targets, self.num_classes, self.weight_dict, focal_alpha=cfg.focal_alpha,
                 matcher_impl=cfg.matcher_impl, cost_class=cfg.set_cost_class,
                 cost_bbox=cfg.set_cost_bbox, cost_giou=cfg.set_cost_giou)
-            values = {"loss": float(total),
-                      **{k: float(losses[k]) for k in ("loss_ce", "loss_bbox", "loss_giou")}}
-            for k, v in values.items():
-                sums[k] = sums.get(k, 0.0) + v
-            n += 1
-        stats = {k: v / max(n, 1) for k, v in sums.items()}
+            # each rank's values are its share of the global batch's
+            values = mesh.all_reduce_sum(torch.stack([total] + [losses[k] for k in keys]))
+            mlog.update(**dict(zip(("loss",) + keys, values.tolist())))
+        stats = {k: m.global_avg for k, m in mlog.meters.items()}
         self.log(f"detection eval: {stats}")
         self.append_log_line({"epoch": self.epoch, "eval": stats})
         return stats
@@ -301,44 +338,65 @@ class Trainer:
         forward = ((lambda im, vh: torch.func.functional_call(model, ema, (im, vh)))
                    if ema is not None else model)
         spaceless = " " not in charset
-        preds, nms_preds, gts, losses = [], [], [], []
-        nms_labels, gt_labels = [], []
-        max_confs: List[float] = []
-        th_counts = {t: 0 for t in DIAGNOSTIC_TH}
-        n_images = 0
-        p_gt_sum, p_gt_n = 0.0, 0
-        for i, batch in enumerate(batches):
-            arrays = to_device(batch, self.device)
+        parts = []  # per batch, this rank's lines
+        for i, batch in enumerate(mesh.lockstep(batches)):
+            host = rank_rows(batch, train=False)
+            arrays = to_device(host, self.device)
             out = forward(prep_images(arrays["images"], arrays["valid_hw"]), arrays["valid_hw"])
+            # one process's mean over the global batch: each rank's share
             loss, _ = ctc_loss(out["pred_logits"], out["pred_boxes"], arrays["labels"],
-                               arrays["valid"], eps=self.cfg.ctc_eps)
-            losses.append(float(loss))
+                               arrays["valid"], eps=self.cfg.ctc_eps,
+                               lines=len(batch_to_arrays(batch)["images"])
+                               if mesh.world_size() > 1 else None)
             logits = out["pred_logits"].float().cpu().numpy()
             scores = 1.0 / (1.0 + np.exp(-logits.max(-1)))  # (B, Q)
-            max_confs.extend(scores.max(-1).tolist())
-            for t in DIAGNOSTIC_TH:
-                th_counts[t] += int((scores > t).sum())
-            n_images += scores.shape[0]
             frames = greedy_decode(out["pred_logits"], out["pred_boxes"])
-            preds += [labels_to_text(l, charset) for l in greedy_labels(frames)]
             nms = nms_decode(out["pred_logits"], out["pred_boxes"], 0.3, 0.5)
-            nms_preds += [labels_to_text(l, charset) for l in nms]
-            nms_labels += [list(l) for l in nms]
-            host = batch_to_arrays(batch)
-            gts += list(host["texts"])
             valid = np.asarray(host["valid"], bool)
-            gt_labels += [np.asarray(l)[v].tolist() for l, v in zip(host["labels"], valid)]
+            part = {"loss": float(loss), "max_confs": scores.max(-1).tolist(),
+                    "th_counts": {t: int((scores > t).sum()) for t in DIAGNOSTIC_TH},
+                    "preds": [labels_to_text(l, charset) for l in greedy_labels(frames)],
+                    "nms_preds": [labels_to_text(l, charset) for l in nms],
+                    "nms_labels": [list(l) for l in nms], "gts": list(host["texts"]),
+                    "gt_labels": [np.asarray(l)[v].tolist()
+                                  for l, v in zip(host["labels"], valid)],
+                    "p_gt": (0.0, 0)}
             if i == 0:
                 probs = 1.0 / (1.0 + np.exp(-logits))
                 boxes = out["pred_boxes"].float().cpu().numpy()
+                p_sum, p_n = 0.0, 0
                 for b in range(logits.shape[0]):
                     gt_b = np.asarray(host["boxes"][b], np.float32)[valid[b]]
                     gt_l = np.asarray(host["labels"][b])[valid[b]]
                     if len(gt_b) == 0:
                         continue
                     best_q = box_iou_cxcywh(gt_b, boxes[b]).argmax(-1)
-                    p_gt_sum += float(probs[b, best_q, gt_l].sum())
-                    p_gt_n += len(gt_l)
+                    p_sum += float(probs[b, best_q, gt_l].sum())
+                    p_n += len(gt_l)
+                part["p_gt"] = (p_sum, p_n)
+            parts.append(part)
+        # every rank's lines, batch by batch in rank order: the global
+        # batches' order, as one process reads them
+        by_rank = mesh.all_gather_object(parts)
+        preds, nms_preds, gts, losses = [], [], [], []
+        nms_labels, gt_labels = [], []
+        max_confs: List[float] = []
+        th_counts = {t: 0 for t in DIAGNOSTIC_TH}
+        p_gt_sum, p_gt_n = 0.0, 0
+        for batch_parts in zip(*by_rank):
+            losses.append(sum(p["loss"] for p in batch_parts))
+            for p in batch_parts:
+                preds += p["preds"]
+                nms_preds += p["nms_preds"]
+                nms_labels += p["nms_labels"]
+                gts += p["gts"]
+                gt_labels += p["gt_labels"]
+                max_confs += p["max_confs"]
+                for t in DIAGNOSTIC_TH:
+                    th_counts[t] += p["th_counts"][t]
+                p_gt_sum += p["p_gt"][0]
+                p_gt_n += p["p_gt"][1]
+        n_images = len(max_confs)
         stats = {"cer": metrics.corpus_cer(preds, gts),
                  "nms_cer": metrics.corpus_cer(nms_preds, gts),
                  "loss_CTC": float(np.mean(losses)) if losses else float("nan"),
@@ -364,9 +422,15 @@ class Trainer:
                 "ema_params": s.ema, "epoch": self.epoch}
 
     def save(self, name: str = "checkpoint") -> str:
-        path = ckpt_lib.save_checkpoint(os.path.join(self.output_dir, name), self.state.step,
-                                        self.checkpoint_state())
-        self.log(f"saved checkpoint @{self.state.step} -> {path}")
+        """Rank 0 writes the train state (every rank holds the same); the
+        ranks wait for it together."""
+        directory = os.path.join(self.output_dir, name)
+        if self.rank == 0:
+            path = ckpt_lib.save_checkpoint(directory, self.state.step, self.checkpoint_state())
+            self.log(f"saved checkpoint @{self.state.step} -> {path}")
+        else:
+            path = ckpt_lib.checkpoint_path(directory, self.state.step)
+        mesh.barrier()
         return path
 
     @torch.no_grad()
@@ -374,7 +438,9 @@ class Trainer:
         """Restore the newest saved state under ``name``. If its optimizer
         state is another stage's (head-only against full model), the
         fresh optimizer is kept, the parameters, step and epoch restored,
-        and EMA seeded from the restored parameters."""
+        and EMA seeded from the restored parameters. Every rank restores
+        the same file."""
+        mesh.barrier()
         restored = ckpt_lib.restore_checkpoint(os.path.join(self.output_dir, name))
         if restored is None:
             return False
@@ -395,4 +461,10 @@ class Trainer:
         self.epoch = int(restored["epoch"])
         self.log(f"resumed from {name} at epoch {self.epoch}, step {s.step}"
                  + ("" if same else " (params only: the optimizer changed between stages)"))
+        if self.world > 1:
+            # every rank must now hold the same state
+            digests = mesh.all_gather_object(ckpt_lib.state_sha256(self.checkpoint_state()))
+            self.log(f"resumed state sha256 {digests[self.rank]}")
+            if len(set(digests)) != 1:
+                raise RuntimeError(f"the ranks resumed different states: {digests}")
         return True

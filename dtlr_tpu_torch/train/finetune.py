@@ -37,6 +37,12 @@ the drawn scale, squashed to ``image_h_max`` rows, four random erasings,
 read every ``eval_epoch`` epochs. Every 100 steps the training CER of the
 step's batch is logged (dtlr_tpu/train/finetune.py:261). The class count
 is the charset's, the CDN label book keeps the config family's offset.
+
+Data parallelism: ``torchrun --nproc_per_node W -m
+dtlr_tpu_torch.train.finetune ...`` with the same arguments trains over W
+ranks (NCCL on the cards, gloo with ``--device cpu``); ``batch_size`` is
+the global batch, which W must divide. Every rank builds the same
+batchers and keeps its rows; rank 0 writes the run's files.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from ..data.batching import make_batcher
 from ..data.charset import load_charset_file, load_default_charset
 from ..data.hwdb_synth import hwdb_stream
 from ..data.loaders import NpzLines, build_dataset, dataset_iter, eval_iter
+from ..parallel import mesh
 from . import checkpoints as ckpt_lib
 from .config import dump_run_config, labelbook_offset, load_settings
 from .engine import Trainer
@@ -125,6 +132,16 @@ def pretrained(path: str, trainer: Trainer):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    own_group = not mesh.distributed()
+    world = mesh.init_distributed(args.device)
+    try:
+        return run(args)
+    finally:
+        if own_group and world.backend is not None:
+            mesh.shutdown()
+
+
+def run(args) -> dict:
     cfg, model_cfg, config, unread = load_settings(args.config_file, args.options, "ctc")
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
@@ -164,11 +181,12 @@ def main(argv=None) -> dict:
         raise ValueError(f"the model has {params['params/class_embed/fc/kernel'].shape[-1]} "
                          f"classes and the lines' charset {num_classes}: pass "
                          "--new_class_embedding")
-    with open(os.path.join(args.output_dir, "config_cfg.json"), "w") as fh:
-        json.dump({"train": dataclasses.asdict(cfg), "model": dataclasses.asdict(model_cfg),
-                   "args": vars(args), "unread_config_keys": unread}, fh, indent=1)
-    dump_run_config(os.path.join(args.output_dir, "config_cfg.py"), config, cfg, model_cfg,
-                    num_classes, params["params/label_enc"].shape[0] - 1)
+    if trainer.rank == 0:
+        with open(os.path.join(args.output_dir, "config_cfg.json"), "w") as fh:
+            json.dump({"train": dataclasses.asdict(cfg), "model": dataclasses.asdict(model_cfg),
+                       "args": vars(args), "unread_config_keys": unread}, fh, indent=1)
+        dump_run_config(os.path.join(args.output_dir, "config_cfg.py"), config, cfg, model_cfg,
+                        num_classes, params["params/label_enc"].shape[0] - 1)
 
     trainer.build(params, head_only=stage1 and not args.full_model)
     if args.resume_finetuning:

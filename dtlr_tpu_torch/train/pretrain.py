@@ -10,7 +10,7 @@ Usage:
         [--warm_start_npz artifacts/r4run_params.npz] [--epochs N] \\
         [--steps_per_epoch N] [--eval_every N] [--seed 42] [--train_seed N] \\
         [--deadline EPOCH_SECONDS] [--deadline_file PATH] [--eval] \\
-        [--options key=value ...] [--device cuda] [--compute_dtype bfloat16]
+        [--options key=value ...] [--device cuda] [--compute_dtype bfloat16] [--deterministic]
     python -m dtlr_tpu_torch.train.pretrain -c dtlr_tpu_torch/configs/Latin_TPU.py \\
         --lines lines_with_boxes.npz [--val_lines ...] [--params snapshot.npz] ...
 
@@ -50,6 +50,16 @@ reads the held-out set. At the end the weights go to ``params.npz``
 (float32) and the detection loss of the held-out set is evaluated.
 The TPU host's workarounds (the RSS limit, the stall watchdog, the
 compilation cache, wandb, multi-host initialization) are left out.
+
+Data parallelism: ``torchrun --nproc_per_node W -m
+dtlr_tpu_torch.train.pretrain ...`` with the same arguments trains over W
+ranks (NCCL on the cards, one per rank; gloo with ``--device cpu``).
+``batch_size`` stays the global batch and W must divide it. Every rank
+builds the same batcher from the same seed and keeps its rows of each
+batch, so the batches are one process's; rank 0 writes the run's files
+and decides the deadline for all. ``--deterministic`` makes a run repeat
+bit for bit on the card (``dtlr_tpu_torch.set_deterministic``), with or
+without torchrun at world size 1.
 """
 
 from __future__ import annotations
@@ -63,9 +73,11 @@ import time
 
 import torch
 
+from .. import set_deterministic
 from ..data.batching import make_batcher
 from ..data.hwdb_synth import hwdb_stream
 from ..data.loaders import NpzLines, build_dataset, dataset_iter, eval_iter
+from ..parallel import mesh
 from . import checkpoints as ckpt_lib
 from .config import dump_run_config, labelbook_offset, load_settings
 from .engine import Trainer
@@ -109,6 +121,8 @@ def parse_args(argv=None):
     p.add_argument("--compute_dtype", default=None, choices=("bfloat16", "float32"),
                    help="default: the settings'")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--deterministic", action="store_true",
+                   help="repeat bit for bit on the card (deterministic algorithms; slower)")
     return p.parse_args(argv)
 
 
@@ -156,6 +170,18 @@ def read_batches(batcher):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.deterministic:
+        set_deterministic()
+    own_group = not mesh.distributed()
+    world = mesh.init_distributed(args.device)
+    try:
+        return run(args)
+    finally:
+        if own_group and world.backend is not None:
+            mesh.shutdown()
+
+
+def run(args) -> dict:
     cfg, model_cfg, config, unread = load_settings(args.config_file, args.options, "pretrain")
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
@@ -200,11 +226,12 @@ def main(argv=None) -> dict:
             result["warm_start"] = {**counts, "fresh_leaves": fresh}
             trainer.log(f"warm start from {args.warm_start_npz}: {counts}, fresh {fresh}")
     result["dn_labelbook_size"] = labelbook
-    with open(os.path.join(args.output_dir, "config_cfg.json"), "w") as fh:
-        json.dump({"train": dataclasses.asdict(cfg), "model": dataclasses.asdict(model_cfg),
-                   "args": vars(args), "unread_config_keys": unread}, fh, indent=1)
-    dump_run_config(os.path.join(args.output_dir, "config_cfg.py"), config, cfg, model_cfg,
-                    num_classes, labelbook)
+    if trainer.rank == 0:
+        with open(os.path.join(args.output_dir, "config_cfg.json"), "w") as fh:
+            json.dump({"train": dataclasses.asdict(cfg), "model": dataclasses.asdict(model_cfg),
+                       "args": vars(args), "unread_config_keys": unread}, fh, indent=1)
+        dump_run_config(os.path.join(args.output_dir, "config_cfg.py"), config, cfg, model_cfg,
+                        num_classes, labelbook)
 
     trainer.build(params)
     if args.resume:
@@ -243,14 +270,16 @@ def main(argv=None) -> dict:
                     record["evals"].append(evaluate(use_ema=True, tag="eval_ema"))
             result["epochs"].append(record)
             result["train"] = stats
+            # rank 0's clock and deadline file decide for every rank
             deadline = effective_deadline(args)
-            if deadline > 0 and time.time() > deadline:
+            if mesh.broadcast_object(deadline > 0 and time.time() > deadline):
                 trainer.log(f"wall-clock deadline reached after epoch {epoch}")
                 break
     finally:
         batches.stop()
     weights = os.path.join(args.output_dir, "params.npz")
-    ckpt_lib.export_params_npz(trainer.state.model, weights, dtype=None)
+    if trainer.rank == 0:
+        ckpt_lib.export_params_npz(trainer.state.model, weights, dtype=None)
     val_batches = make_batcher(cfg, iter(eval_samples), False, args.seed + 7, space_label,
                                erasing=cfg.truly_random_erasing)
     result["eval"] = trainer.evaluate_detection(read_batches(val_batches))

@@ -10,6 +10,14 @@ as JAX's step does), and EMA with a warmed decay. The CTC step never
 waits for the device: its metrics stay tensors until the caller reads
 them. The detection step's matcher reads from the device (a few flags
 per step for the auction, the costs for the scipy path).
+
+Data parallelism (a process group, ``parallel/mesh.py``): each rank
+steps on its rows of the global batch (an even share: ``batch_size`` is
+the global batch, as JAX's mesh shards it); the losses divide by the
+global batch's normalizers, the gradients, the total and the terms are
+summed over the ranks in one collective after the backward
+(``_all_reduce``), and the denoising noise is the global batch's draws
+cut to the rank's rows. Without a group nothing of this runs.
 """
 
 from __future__ import annotations
@@ -21,10 +29,12 @@ import numpy as np
 import torch
 
 from ..losses.criterion import detection_loss
+from ..models.cdn import CdnDraws, draw_cdn_noise, take_rows
 from ..models.dino import DINO
 from ..ops.ctc import ctc_loss
 from ..ops.matcher import match_outputs
 from ..ops.pixels import prep_images
+from ..parallel import mesh
 from .optim import Optimizer, label_params
 
 Batch = Dict[str, torch.Tensor]
@@ -88,6 +98,41 @@ def _no_mark(phase: str) -> None:
     pass
 
 
+def _all_reduce(model: DINO, total: torch.Tensor, terms: Dict[str, torch.Tensor]):
+    """Sum the backward's gradients and the loss terms over the ranks in
+    one collective (``parallel.all_reduce_coalesced``): every parameter's
+    gradient in the model's order, a zero one where the parameter got none
+    (as optax sees a leaf that the loss does not reach), then the total
+    and the terms. The sums go back into ``p.grad``; returns the global
+    total and terms. Each rank's loss is its share of the global loss (the
+    losses divide by the global batch's normalizers), so the sums are one
+    process's step on the whole batch, and every rank gets the same bits:
+    the clip, the NaN-skip, AdamW and EMA then take the same branch and
+    the same values on every rank."""
+    params = [p for p in model.parameters()]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    names = list(terms)
+    scalars = torch.stack([total.detach().float()] + [terms[k].detach().float() for k in names])
+    reduced = mesh.all_reduce_coalesced(grads + [scalars])
+    for p, g in zip(params, reduced):
+        p.grad = g
+    return reduced[-1][0], dict(zip(names, reduced[-1][1:]))
+
+
+def _rank_noise(model: DINO, batch: Batch, cdn_noise):
+    """The rank's denoising noise under data parallelism: the global
+    batch's draws (from the generator, or as given) cut to the rank's
+    rows, so that the ranks draw what one process draws."""
+    if not model.cfg.use_dn:
+        return cdn_noise
+    W, B = mesh.world_size(), batch["labels"].shape[0]
+    rows = mesh.shard_rows(B * W, mesh.rank(), W)
+    if isinstance(cdn_noise, CdnDraws):
+        return take_rows(cdn_noise, rows)
+    return draw_cdn_noise(B * W, batch["labels"].shape[1], model.cfg.dn_number,
+                          model.num_classes, cdn_noise, batch["labels"].device, rows)
+
+
 def make_detection_train_step(num_classes: int, weight_dict: Dict[str, float],
                               focal_alpha: float = 0.25, matcher_impl: str = "jax",
                               cost_class: float = 2.0, cost_bbox: float = 5.0,
@@ -109,6 +154,8 @@ def make_detection_train_step(num_classes: int, weight_dict: Dict[str, float],
     def loss_fn(model: DINO, batch: Batch, cdn_noise=None, mark=_no_mark):
         targets = {k: batch[k] for k in ("labels", "boxes", "valid")}
         images = prep_images(batch["images"], batch["valid_hw"])
+        if mesh.world_size() > 1:
+            cdn_noise = _rank_noise(model, batch, cdn_noise)
         outputs = model(images, batch["valid_hw"], targets, train=True, cdn_noise=cdn_noise)
         mark("forward")
         matched = [outputs] + list(outputs.get("aux_outputs", [])) + (
@@ -131,6 +178,8 @@ def make_detection_train_step(num_classes: int, weight_dict: Dict[str, float],
             p.grad = None
         total, losses = loss_fn(model, batch, cdn_noise, mark)
         total.backward()
+        if mesh.distributed():
+            total, losses = _all_reduce(model, total, losses)
         mark("backward")
         norm = _apply_update(state, total, ema_decay)
         mark("update")
@@ -157,8 +206,10 @@ def make_ctc_train_step(ctc_eps: float = 0.003, ctc_coef: float = 1.0,
     def loss_fn(model: DINO, batch: Batch):
         images = prep_images(batch["images"], batch["valid_hw"])
         outputs = model(images, batch["valid_hw"])
+        W = mesh.world_size()
         loss, probs = ctc_loss(outputs["pred_logits"], outputs["pred_boxes"],
-                               batch["labels"], batch["valid"], eps=ctc_eps)
+                               batch["labels"], batch["valid"], eps=ctc_eps,
+                               lines=batch["labels"].shape[0] * W if W > 1 else None)
         return ctc_coef * loss, (loss, probs)
 
     def step(state: TrainState, batch: Batch):
@@ -168,6 +219,9 @@ def make_ctc_train_step(ctc_eps: float = 0.003, ctc_coef: float = 1.0,
             p.grad = None
         total, (raw, _) = loss_fn(model, batch)
         total.backward()
+        if mesh.distributed():
+            total, raw = _all_reduce(model, total, {"loss_CTC": raw})
+            raw = raw["loss_CTC"]
         norm = _apply_update(state, total, ema_decay)
         metrics = {"loss": total.detach(), "loss_CTC": raw.detach(),
                    "skipped": (~torch.isfinite(total.detach())).float(), "grad_norm": norm}
