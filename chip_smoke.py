@@ -168,6 +168,39 @@ Phases, each printing one JSON line with its seconds:
            encoder's resize backward, CUDA's atomic one against
            _MatrixResize's (the encoder's, which lets (a) repeat bit for
            bit), ms per layer
+  ngram    the n-gram rescoring of the read: python -m dtlr_tpu_torch.ngram.rescore
+           with the flagship checkpoint on the 16 lines of
+           dtlr_tpu_torch/assets/smoke_words.npz (a 6-gram stupid-backoff LM
+           fit on artifacts/corpus_words_train.txt, weight 0.75, beam 16,
+           the YAML's gating), four children in parallel: fp32, bf16, the
+           lexicon arm in fp32 and a two-point --sweep_lm in fp32; meanwhile
+           in this process (a) the port's decoder on the JAX package's
+           committed fp32 posteriors (dtlr_tpu_torch/assets/smoke_words_ref.npz)
+           gives JAX's n-gram and lexicon strings exactly; each child (b) its
+           greedy and n-gram strings within CER 0.01 (fp32) / 0.02 (bf16) of
+           JAX's, the lines that differ, (c) 6 mha_box and 6 mha launches
+           per forward batch, (d) ngram_preds/preds_ngram.txt written (none
+           by the sweep); forward ms per batch, the LM's fit seconds, decode
+           ms per line per arm, CER against the ground truth, lines/s; then
+           the LM rescorer (models/lm_rescorer.py, d_model 256, 8 heads, 4
+           layers, seeded) over the decoder's last features of 8 of the
+           lines: shape, finite, ms
+  backbones configs/Latin_TPU.py's model at full width from deform_weights'
+           seeded stream with the Swin and ConvNeXt backbones:
+           swin_T_224_1k and convnext_tiny read the eight fixture lines in
+           fp32, held against the JAX package's reading of the same weights
+           (dtlr_tpu_torch/assets/smoke_backbones_ref.npz, written by
+           tests/test_torch_backbones_fixture.py) as the deform phase holds
+           its own, and in bf16 (the backbone's Dense layers in bf16, finite
+           outputs); swin_L_224_22k and convnext_xlarge_22k read in bf16;
+           every reading 6 + 6 attention launches, ms, lines/s, peak
+           memory; then for swin_T and convnext_tiny one pretraining step
+           of python -m dtlr_tpu_torch.train.pretrain -c configs/Latin_TPU.py
+           --options backbone=... (B=8, CDN) with its evaluation, and for the
+           large two three recipe steps through Trainer (its first batch):
+           finite losses, ms, peak memory, launches as counted; the step's
+           weights the recipe's fresh init, Swin's backbone deform_weights'
+           (a fresh Swin overflows its gradient on zero padding, JAX alike)
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel (the attention
 in bf16 and, as ``*_fp32``, in fp32, at each dtype's path), the card's name
@@ -1777,6 +1810,38 @@ DEFORM_DATA_OPTIONS = ["batch_size=8", "use_ema=True", "max_targets=64",
                        "image_h_max=192", "eval_set_size=200"]
 
 
+FLAGSHIP_CONFIG = os.path.join(REPO, "outputs", "finetune_r4b", "config_cfg.py")
+WORDS = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_words.npz")
+WORDS_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_words_ref.npz")
+LM_CORPUS = os.path.join(REPO, "artifacts", "corpus_words_train.txt")
+#: dtlr_tpu/ngram/synthetic_r4_words.yaml's settings (the committed train
+#: corpus in place of its absent bigger one); the lexicon arm adds
+#: synthetic_r4_words_lex.yaml's
+NGRAM_SETTINGS = {"lm_corpus": LM_CORPUS, "lm_order": 6, "lm_smoothing": "stupid",
+                  "lm_weight": 0.75, "logits_multiplier": 2.0, "beam": 16,
+                  "skip_gated_words": True, "batch_size": 8}
+NGRAM_LEXICON = {"lexicon_from_corpus": True, "lexicon_margin": 5.0}
+NGRAM_SWEEP = "lm_weight=0.5,0.75"
+#: the read gates of PERF.md section 2, on the strings against JAX's
+NGRAM_TOL = {"float32": 0.01, "bfloat16": 0.02}
+BACKBONES_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_backbones_ref.npz")
+BACKBONES_CONFIG = os.path.join(CONFIGS, "Latin_TPU.py")
+#: the backbones held against JAX's reading, and the reference's own
+#: large ones (dtlr_tpu/models/convnext.py:1-2), read and stepped only
+BACKBONES_HELD = ("swin_T_224_1k", "convnext_tiny")
+BACKBONES_LARGE = ("swin_L_224_22k", "convnext_xlarge_22k")
+
+
+def backbone_config(backbone, compute_dtype="float32"):
+    """configs/Latin_TPU.py's model (the flagship's windowed encoder and
+    dense cross-attention with the box prior, hidden 256, 8 heads, 6 + 6
+    layers, 900 queries) with ``backbone``, at ``compute_dtype``."""
+    from dtlr_tpu_torch.train.config import load_settings
+
+    _, cfg, _, _ = load_settings(BACKBONES_CONFIG, [f"backbone={backbone}"], "pretrain")
+    return dataclasses.replace(cfg, compute_dtype=compute_dtype)
+
+
 def deform_config(compute_dtype="float32", shared_offsets=False):
     """configs/Latin.py's model (hidden 256, 8 heads, 6 + 6 layers, 900
     queries, 4 levels x 4 points, deformable encoder and cross-attention,
@@ -1795,9 +1860,10 @@ def deform_weights(model_cfg, num_classes, seed=DEFORM_SEED):
     kernels normal(0, 1 / sqrt(fan_in)) (the class heads' 4 times that,
     so that their logits seldom tie), norm scales 1 + normal(0, 0.1),
     biases normal(0, 0.02), the sampling offsets' bias normal(0, 2)
-    pixels, the embeddings normal(0, 1), and FrozenBN statistics that are
-    not the identity (scale 1 + normal(0, 0.1), bias and mean normal(0,
-    0.1), var uniform(0.5, 1.5))."""
+    pixels, the embeddings, Swin's position bias tables and ConvNeXt's
+    layer scales normal(0, 1), and FrozenBN statistics that are not the
+    identity (scale 1 + normal(0, 0.1), bias and mean normal(0, 0.1), var
+    uniform(0.5, 1.5))."""
     from dtlr_tpu_torch.train.torch_import import template
 
     cfg = dataclasses.replace(model_cfg, dn_labelbook_size=num_classes + 1)
@@ -1818,7 +1884,7 @@ def deform_weights(model_cfg, num_classes, seed=DEFORM_SEED):
             x = 1.0 + rng.normal(0.0, 0.1, shape)
         elif leaf == "bias":
             x = rng.normal(0.0, 2.0 if "sampling_offsets" in key else 0.02, shape)
-        else:  # level_embed, tgt_embed, label_enc
+        else:  # level_embed, tgt_embed, label_enc, the tables, gamma
             x = rng.normal(0.0, 1.0, shape)
         tree[key] = x.astype(np.float32)
     return tree
@@ -2245,6 +2311,470 @@ def phase_sweep(card):
     failed = [r["compute_dtype"] for r in records if not r["ok"]]
     if failed:
         raise AssertionError(f"sweep phase checks failed: {failed}")
+    return records, launches
+
+
+# the ngram phase: python -m dtlr_tpu_torch.ngram.rescore on the 16 lines
+# of WORDS with the flagship, held against the JAX package's rescoring of
+# them (tests/test_torch_smoke_words.py writes WORDS and WORDS_REF)
+NGRAM_CHILD = """
+import json, sys, time
+import torch
+from dtlr_tpu_torch.ngram import rescore
+from dtlr_tpu_torch.ops.flash_attn import flash_mha
+t0 = time.perf_counter()
+res = rescore.main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({"child": {"launches": dict(flash_mha.launches),
+                            "seconds": time.perf_counter() - t0,
+                            **{k: v for k, v in res.items() if k != "posteriors"}}}))
+"""
+NGRAM_CHILD_TIMEOUT = 600
+
+
+def ngram_yaml(path, out_dir, lexicon=False):
+    """A rescore YAML for the phase: WORDS with the flagship and
+    NGRAM_SETTINGS (and NGRAM_LEXICON), writing under ``out_dir``."""
+    keys = {"lines": WORDS, "model_config": FLAGSHIP_CONFIG, "params": PARAMS,
+            "ckpt_dir": out_dir, **NGRAM_SETTINGS, **(NGRAM_LEXICON if lexicon else {})}
+    with open(path, "w") as fh:
+        fh.write("".join(f"{k}: {v}\n" for k, v in keys.items()))
+    return path
+
+
+def start_ngram_child(args):
+    """The rescore entry point as a child process (its own attention counts,
+    from 0) with ``args``; returns the Popen."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="2")
+    return subprocess.Popen([sys.executable, "-c", NGRAM_CHILD, *args], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def finish_child(name, proc):
+    """The child's last-line record and its printed JSON lines; kills it
+    at NGRAM_CHILD_TIMEOUT; raises if it failed."""
+    try:
+        out, err = proc.communicate(timeout=NGRAM_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        raise AssertionError(f"ngram {name}: no result in {NGRAM_CHILD_TIMEOUT} s:\n{err[-3000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"ngram {name} failed ({proc.returncode}):\n{out[-2000:]}\n"
+                             f"{err[-3000:]}")
+    printed = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+    return printed[-1]["child"], printed[:-1]
+
+
+def host_decode(ref, charset):
+    """Gate (a): the port's LM, lexicon and ``rescore_line`` in this process
+    on JAX's committed fp32 posteriors, with the LM's fit seconds and the
+    decode's ms per line for each arm."""
+    from dtlr_tpu_torch.ngram.lm_decode import CharNgramLM, LexiconTrie, rescore_line
+
+    s = NGRAM_SETTINGS
+    t0 = time.perf_counter()
+    cs = set(charset)
+    with open(LM_CORPUS) as fh:
+        text = fh.readlines()
+    lm = CharNgramLM(order=s["lm_order"], smoothing=s["lm_smoothing"]).fit(
+        [t for t in ("".join(c for c in l if c in cs) for l in text) if t])
+    fit_s = time.perf_counter() - t0
+    lexicon = LexiconTrie(w for w in {"".join(c for c in w if c in cs)
+                                      for l in text for w in l.split()} if w)
+    gate = s["skip_gated_words"]
+    greedy = [str(g) for g in ref["greedy_fp32"]]
+    out = {"lm_fit_s": fit_s}
+    for arm, lex in (("ngram", None), ("lexicon", lexicon)):
+        t0 = time.perf_counter()
+        got = [rescore_line(p, g, charset, lm, lm_weight=s["lm_weight"], beam=s["beam"],
+                            no_uppercase_words=gate, no_digits=False, no_dash=gate,
+                            lexicon=lex, lexicon_margin=NGRAM_LEXICON["lexicon_margin"])
+               for p, g in zip(ref["probs_fp32"], greedy)]
+        want = [str(x) for x in ref[f"{arm}_fp32"]]
+        out[arm] = {"equal": got == want, "lines_differ": sum(a != b for a, b in zip(got, want)),
+                    "decode_ms_per_line": (time.perf_counter() - t0) * 1e3 / len(got)}
+    return out
+
+
+def rescorer_forward(card, charset):
+    """The LM rescorer (models/lm_rescorer.py) at its default width over the
+    flagship decoder's last features of the phase's lines (fp32): shape,
+    finite, ms."""
+    from dtlr_tpu_torch.data.batching import make_batcher
+    from dtlr_tpu_torch.data.loaders import NpzLines, eval_iter
+    from dtlr_tpu_torch.eval.evaluate import forward_lines, load_model
+    from dtlr_tpu_torch.models.lm_rescorer import SelfAttentionRescorer
+    from dtlr_tpu_torch.train.config import load_settings
+
+    model = load_model(PARAMS, device="cuda", compute_dtype="float32")
+    data_cfg, _, _, _ = load_settings(FLAGSHIP_CONFIG, None, "ctc")
+    batcher = make_batcher(data_cfg, eval_iter(NpzLines(WORDS)), False, 0)
+    try:
+        batch = next(iter(batcher))
+    finally:
+        batcher.stop()
+    seen = {}
+
+    def keep_hs(module, inputs, outputs):  # returns None: the output stays
+        seen["hs"] = outputs[0]
+
+    hook = model.transformer.register_forward_hook(keep_hs)
+    with torch.no_grad():
+        out = forward_lines(model, batch.images, batch.valid_hw)
+    hook.remove()
+    feats, xc = seen["hs"][-1].float(), out["pred_boxes"][..., 0]
+    torch.manual_seed(0)
+    rescorer = SelfAttentionRescorer(feats.shape[-1], len(charset)).cuda().eval()
+    with torch.no_grad():
+        logits = rescorer(feats, xc)
+        ms = cuda_ms(lambda: rescorer(feats, xc), calls=5, runs=5, warmup=2)
+    record = {"part": "lm_rescorer", "features": list(feats.shape), "shape": list(logits.shape),
+              "finite": bool(torch.isfinite(logits).all()), "ms": ms,
+              "d_model": rescorer.d_model, "layers": rescorer.n_layers, "card": card}
+    del model, rescorer
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_ngram(card):
+    """The n-gram rescoring of the read (see the module docstring): four
+    entry-point children in parallel, gate (a) in this process meanwhile,
+    then the rescorer's forward."""
+    import tempfile
+
+    from dtlr_tpu_torch.eval import metrics
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+
+    with np.load(WORDS_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    with np.load(WORDS) as z:
+        charset = [str(c) for c in z["charset"]]
+        n_lines = len(z["texts"])
+    n_batches = -(-n_lines // NGRAM_SETTINGS["batch_size"])
+    n_dec = FLAGSHIP.dec_layers
+    want_launches = {"mha_box": n_dec * n_batches, "mha": n_dec * n_batches, "mha_masked": 0}
+    texts = [str(t) for t in ref["texts"]]
+    records = []
+    with tempfile.TemporaryDirectory() as workdir:
+        runs = {"fp32": (False, "float32", []), "bf16": (False, "bfloat16", []),
+                "lexicon_fp32": (True, "float32", []),
+                "sweep_fp32": (False, "float32", ["--sweep_lm", NGRAM_SWEEP])}
+        procs = {}
+        for name, (lex, dt, extra) in runs.items():
+            out_dir = os.path.join(workdir, name)
+            yaml = ngram_yaml(os.path.join(workdir, f"{name}.yaml"), out_dir, lex)
+            procs[name] = start_ngram_child(["--config_path", yaml, "--compute_dtype", dt,
+                                             *extra])
+        t0 = time.perf_counter()
+        try:
+            decode = host_decode(ref, charset)
+        except BaseException:
+            for p in procs.values():
+                os.killpg(p.pid, 9)
+            raise
+        rec = {"phase": "ngram", "part": "decoder_on_jax_posteriors", **decode,
+               "seconds": time.perf_counter() - t0}
+        rec["ok"] = decode["ngram"]["equal"] and decode["lexicon"]["equal"]
+        emit(rec)
+        records.append(rec)
+
+        for name, (lex, dt, extra) in runs.items():
+            child, printed = finish_child(name, procs[name])
+            out_dir = os.path.join(workdir, name, "ngram_preds")
+            tol = NGRAM_TOL[dt]
+            tag = "fp32" if dt == "float32" else "bf16"
+            rec = {"phase": "ngram", "part": "entry_point", "run": name, "compute_dtype": dt,
+                   "launches": child["launches"], "launches_expected": want_launches,
+                   "seconds": child["seconds"], "lines": n_lines,
+                   "lines_per_s": n_lines / child["seconds"],
+                   "forward_ms_per_batch": child["timing"]["forward_ms_per_batch"],
+                   "lm_fit_s": child["timing"]["lm_seconds"], "tol": tol, "card": card}
+            greedy = child["greedy"]
+            rec["greedy_vs_jax"] = {"cer": metrics.mean_cer(greedy, list(ref[f"greedy_{tag}"])),
+                                    "lines_differ": sum(a != str(b) for a, b in
+                                                        zip(greedy, ref[f"greedy_{tag}"]))}
+            rec["greedy_CER_vs_gt"] = metrics.corpus_cer(greedy, texts)
+            ok = (child["launches"] == want_launches and child["gts"] == texts
+                  and rec["greedy_vs_jax"]["cer"] <= tol)
+            if name == "sweep_fp32":
+                points = [p for p in printed if "lm_weight" in p]
+                rec.update(points=points, best=child["best"])
+                want_ngram = [str(s) for s in ref["ngram_fp32"]]
+                jax_cer = metrics.corpus_cer(want_ngram, texts)
+                at = [p for p in points if p["lm_weight"] == NGRAM_SETTINGS["lm_weight"]]
+                ok = (ok and [p["lm_weight"] for p in points] == [0.5, 0.75]
+                      and child["best"] == min(points, key=lambda p: p["ngram_CER"])
+                      and len(at) == 1 and abs(at[0]["ngram_CER"] - jax_cer) <= tol
+                      and not os.path.exists(out_dir))
+                rec["jax_ngram_CER_at_weight"] = jax_cer
+                rec["decode_ms_per_line"] = [p["decode_ms_per_line"] for p in points]
+            else:
+                arm = "lexicon" if lex else "ngram"
+                got = child["ngram"]
+                want = [str(s) for s in ref[f"{arm}_{tag}"]]
+                rec.update(arm=arm, ngram_vs_jax={"cer": metrics.mean_cer(got, want),
+                                                  "lines_differ": sum(a != b for a, b in
+                                                                      zip(got, want))},
+                           greedy_CER=child["greedy_CER"], ngram_CER=child["ngram_CER"],
+                           jax_CER={"greedy": float(ref[f"cer_greedy_{tag}"]),
+                                    "ngram": float(ref[f"cer_{arm}_{tag}"])},
+                           decode_ms_per_line=child["timing"]["decode_ms_per_line"],
+                           lexicon=child["lexicon"])
+                files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+                with open(os.path.join(out_dir, "preds_ngram.txt")) as fh:
+                    written = fh.read()
+                rec["files"] = files
+                ok = (ok and rec["ngram_vs_jax"]["cer"] <= tol and child["lexicon"] == lex
+                      and files == ["preds_ngram.txt"] and written == "\n".join(got)
+                      and child["n"] == n_lines)
+            rec["ok"] = ok
+            emit(rec)
+            records.append(rec)
+
+    t0 = time.perf_counter()
+    rec = {"phase": "ngram", **rescorer_forward(card, charset),
+           "seconds": time.perf_counter() - t0}
+    rec["ok"] = rec["finite"] and rec["shape"] == [NGRAM_SETTINGS["batch_size"], Q,
+                                                  len(charset)]
+    emit(rec)
+    records.append(rec)
+    failed = [r.get("run", r["part"]) for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"ngram phase checks failed: {failed}")
+    launches = {f"ngram_{r['run']}": r["launches"] for r in records if "run" in r}
+    return records, launches
+
+
+def backbone_dtypes(model, images, valid_hw):
+    """The dtypes of one forward's backbone: each Dense's output, each
+    returned feature."""
+    from dtlr_tpu_torch.eval.evaluate import forward_lines
+    from dtlr_tpu_torch.models.layers import Dense
+
+    dense, feats, hooks = set(), set(), []
+
+    def dense_out(module, inputs, output):  # hooks return None: outputs stay
+        dense.add(str(output.dtype))
+
+    def features(module, inputs, outputs):
+        feats.update(str(f.dtype) for f in outputs)
+
+    for m in model.backbone_net.modules():
+        if isinstance(m, Dense):
+            hooks.append(m.register_forward_hook(dense_out))
+    hooks.append(model.backbone_net.register_forward_hook(features))
+    try:
+        forward_lines(model, images, valid_hw)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"dense_outputs": sorted(dense), "features": sorted(feats)}
+
+
+def backbone_read(card, backbone, compute_dtype, lines, ref, tree):
+    """One reading of the fixture lines by Latin_TPU.py's model with
+    ``backbone`` and ``tree`` (``deform_weights``'): the launches per
+    forward, ms, lines/s, peak memory; held against JAX's reading (fp32,
+    where ``ref`` has one) as the deform phase holds its own."""
+    from dtlr_tpu_torch.eval import metrics
+    from dtlr_tpu_torch.eval.evaluate import (agreement, forward_lines, model_from_tree,
+                                              read_lines)
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+
+    t0 = time.perf_counter()
+    cfg = backbone_config(backbone, compute_dtype)
+    if ref is not None and tree_sha256(tree) != str(ref[f"{backbone}_weights_sha256"]):
+        raise AssertionError(f"{backbone}: the seeded weights are not those the reference "
+                             "was read with")
+    model = model_from_tree(tree, cfg, "cuda")
+    build_s = time.perf_counter() - t0
+    th, nms = (float(x) for x in lines["nms_point"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = read_lines(model, lines, th, nms, batch_size=len(lines["images"]))
+    torch.cuda.synchronize()
+    launches = dict(flash_mha.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_dec = cfg.dec_layers
+    record = {"phase": "backbones", "part": "read", "backbone": backbone,
+              "compute_dtype": compute_dtype, "params": sum(p.numel() for p in model.parameters()),
+              "launches_per_forward": launches, "build_s": build_s,
+              "finite": all(np.isfinite(res[k]).all() for k in ("pred_boxes", "max_logit"))}
+    ok = record["finite"] and launches == {"mha_box": n_dec, "mha": n_dec, "mha_masked": 0}
+    if ref is not None:
+        jax_ref = deform_reference(ref, backbone)
+        agree = agreement(res, jax_ref)
+        same = (np.abs(res["anchors"] - jax_ref["jax_anchors"]).max(-1) < 1e-6).all(-1)
+        cer_same = ({k: metrics.mean_cer([s for s, m in zip(res[k], same) if m],
+                                         [s for s, m in zip(jax_ref[f"jax_{k}"], same) if m])
+                     for k in ("greedy", "nms")} if same.any() else None)
+        record.update(agree, box_tol=BOX_TOL, logit_tol=MAX_LOGIT_TOL,
+                      swap_gap_tol=SWAP_GAP_TOL, cer_tol=CER_VS_JAX,
+                      cer_vs_ref_same_selection=cer_same)
+        ok = (ok and agree["lines_compared"] >= 1 and agree["max_pred_boxes_err"] <= BOX_TOL
+              and agree["max_logit_err"] <= MAX_LOGIT_TOL
+              and agree["max_swap_score_gap"] <= SWAP_GAP_TOL
+              and max(cer_same.values()) <= CER_VS_JAX)
+    images, valid_hw = lines["images"], lines["valid_hw"]
+    if compute_dtype == "bfloat16":
+        record["dtypes"] = backbone_dtypes(model, images, valid_hw)
+        ok = ok and record["dtypes"]["dense_outputs"] == ["torch.bfloat16"]
+    record["ok"] = ok
+    if not ok:
+        emit({**record, "failed": True})
+        raise AssertionError(f"backbones {backbone} {compute_dtype}: the reading disagrees "
+                             "with the JAX package's, or launched other kernels")
+    fwd_ms = cuda_ms(lambda: forward_lines(model, images, valid_hw), calls=1, runs=5, warmup=2)
+    record.update(forward_ms_per_batch=fwd_ms, batch=len(images),
+                  lines_per_s=len(images) / (fwd_ms / 1e3), peak_memory_bytes=peak, card=card)
+    del model
+    torch.cuda.empty_cache()
+    return record
+
+
+def step_tree(backbone, read_tree, num_classes):
+    """The weights of a backbone's pretraining step: the recipe's fresh
+    initialization (train/init.py, seed 0, ``num_classes`` classes), with
+    Swin's leaves taken from ``read_tree`` (deform_weights'): at the fresh
+    init (zero biases, unit norms) the tokens of a line's zero padding stay
+    exactly zero through every Swin block, each LayerNorm's backward there
+    multiplies by 1 / sqrt(1e-6), and the gradient overflows, in the JAX
+    package alike (PERF.md)."""
+    from dtlr_tpu_torch.train.init import init_params
+
+    cfg = backbone_config(backbone)
+    tree = init_params(dataclasses.replace(cfg, dn_labelbook_size=num_classes + 1),
+                       num_classes, torch.Generator().manual_seed(0))
+    if backbone.startswith("swin"):
+        tree.update({k: v for k, v in read_tree.items() if k.startswith("params/backbone_net/")})
+    return tree
+
+
+def trainer_steps(card, backbone, tree, workdir, steps=3):
+    """``steps`` recipe detection steps (CDN, bf16) of Latin_TPU.py's model
+    with ``backbone`` through ``Trainer`` on the detection fixture's first
+    recipe batch: ms per step (the first cold), peak memory, launches per
+    step, finite losses and gradient norms."""
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+    from dtlr_tpu_torch.train.config import load_settings
+    from dtlr_tpu_torch.train.engine import Trainer
+
+    train_cfg, model_cfg, _, _ = load_settings(
+        BACKBONES_CONFIG, [*ROUND4_OPTIONS, f"backbone={backbone}"], "pretrain")
+    batcher = recipe_batcher("pretrain")
+    try:
+        batch = next(iter(batcher))
+    finally:
+        batcher.stop()
+    trainer = Trainer(train_cfg, model_cfg, os.path.join(workdir, backbone), device="cuda",
+                      mode="detection")
+    trainer.build(tree)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, norms = [], [], []
+    reset_launches()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = {k: v // steps for k, v in flash_mha.launches.items()}
+    n_dec = model_cfg.dec_layers
+    record = {"phase": "backbones", "run": f"backbones_steps_{backbone}", "backbone": backbone,
+              "steps": steps, "ms_per_step": ms,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "launches_per_step": launches, "losses": losses, "grad_norms": norms,
+              "params": sum(p.numel() for p in trainer.state.model.parameters()), "card": card}
+    record["ok"] = (all(math.isfinite(x) for x in losses + norms)
+                    and launches == {"mha_box": n_dec, "mha": 0, "mha_masked": n_dec}
+                    and dict(flash_mha.launches) == {k: v * steps for k, v in launches.items()})
+    del trainer
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_backbones(card):
+    """Latin_TPU.py's model with the Swin and ConvNeXt backbones (see the
+    module docstring)."""
+    import tempfile
+
+    from dtlr_tpu_torch.eval.evaluate import load_lines
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.train import pretrain
+
+    lines = load_lines(LINES)
+    num_classes = len(lines["charset"])
+    with np.load(BACKBONES_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    with np.load(DETECT_LINES) as z:
+        detect_classes = len(z["charset"])
+    n_dec = FLAGSHIP.dec_layers
+    records, launches = [], {}
+
+    def step_launches(res, steps):
+        n_eval = eval_forwards(res)  # the fixture's 8 lines, batch 8
+        return {"mha_box": n_dec * (steps + n_eval), "mha": n_dec * n_eval,
+                "mha_masked": n_dec * steps}
+
+    with tempfile.TemporaryDirectory() as workdir:
+        for backbone in BACKBONES_HELD + BACKBONES_LARGE:
+            held = backbone in BACKBONES_HELD
+            t0 = time.perf_counter()
+            tree = deform_weights(backbone_config(backbone), num_classes)
+            draw_s = time.perf_counter() - t0
+            for dt in (("float32", "bfloat16") if held else ("bfloat16",)):
+                t0 = time.perf_counter()
+                rec = backbone_read(card, backbone, dt, lines,
+                                    ref if held and dt == "float32" else None, tree)
+                rec.update(seconds=time.perf_counter() - t0, weights_draw_s=draw_s)
+                tag = "fp32" if dt == "float32" else "bf16"
+                launches[f"backbones_read_{backbone}_{tag}"] = rec["launches_per_forward"]
+                emit(rec)
+                records.append(rec)
+            t0 = time.perf_counter()
+            train_tree = step_tree(backbone, tree, detect_classes)
+            del tree
+            if held:
+                # one pretraining step of the entry point, with CDN, and its
+                # evaluations
+                path = os.path.join(workdir, f"{backbone}.npz")
+                np.savez(path, **train_tree)
+                del train_tree
+                res, _, rec = sub_run(f"backbones_step_{backbone}", lambda: pretrain.main(
+                    ["-c", BACKBONES_CONFIG, "--lines", DETECT_LINES, "--seed", "0",
+                     "--output_dir", os.path.join(workdir, backbone), "--epochs", "1",
+                     "--steps_per_epoch", "1", "--params", path, "--options",
+                     *ROUND4_OPTIONS, f"backbone={backbone}"]), step_launches)
+                rec.update(phase="backbones", backbone=backbone, train=res["train"],
+                           detection_eval=res["eval"], card=card)
+                rec["ok"] = (rec["ok"] and rec["steps"] == 1
+                             and math.isfinite(res["train"]["loss"])
+                             and res["train"].get("skipped", 0) == 0
+                             and math.isfinite(res["eval"]["loss"]))
+                launches[rec["run"]] = rec["launches"]
+            else:
+                # the large ones: three steps through the recipe's trainer (the
+                # entry point would also write their gigabytes of checkpoint)
+                rec = trainer_steps(card, backbone, train_tree, workdir)
+                del train_tree
+                launches[rec["run"]] = {k: v * rec["steps"]
+                                        for k, v in rec["launches_per_step"].items()}
+            rec["seconds"] = time.perf_counter() - t0
+            emit(rec)
+            records.append(rec)
+            torch.cuda.empty_cache()
+    failed = [r["run"] if "run" in r else f"{r['backbone']} {r['compute_dtype']}"
+              for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"backbones phase checks failed: {failed}")
     return records, launches
 
 
@@ -2742,6 +3272,18 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    ngram_recs, ngram_launches = phase_ngram(card)
+    emit({"phase": "ngram", "parts": [r.get("run", r["part"]) for r in ngram_recs],
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    backbone_recs, backbone_launches = phase_backbones(card)
+    emit({"phase": "backbones", "parts": [r["run"] if "run" in r
+                                          else f"{r['backbone']} {r['compute_dtype']}"
+                                          for r in backbone_recs],
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
           "seconds": time.perf_counter() - t0})
@@ -2782,14 +3324,19 @@ def main() -> int:
                           "deform_read_bf16_forward": deform_launches["bf16"],
                           **{run: deform_launches[run] for run in
                              ("deform_latin_scratch", "deform_ctc_finetune", "deform_evaluate",
-                              "deform_hwdb_pretrain")}},
+                              "deform_hwdb_pretrain")},
+                          "ngram_bf16": ngram_launches["ngram_bf16"],
+                          **{k: v for k, v in backbone_launches.items()
+                             if not k.endswith("_fp32")}},
              "float32": {"read_fp32_forward": launches["float32"],
                          "sweep_fp32_90_points": sweep_launches["float32"],
                          "ctc_train_fp32_first_step": train_fp32,
                          "detect_fp32_first_step": detect_fp32,
                          "deform_read_fp32_forward": deform_launches["fp32"],
                          "deform_read_shared_fp32_forward": deform_launches["shared_fp32"],
-                         **ddp_launches}}
+                         **ddp_launches,
+                         **{k: v for k, v in ngram_launches.items() if k != "ngram_bf16"},
+                         **{k: v for k, v in backbone_launches.items() if k.endswith("_fp32")}}}
     by_path = {name + suffix: {path: counts[name] for path, counts in paths[dt].items()}
                for name in flash_attn.KERNELS
                for suffix, dt in (("", "bfloat16"), ("_fp32", "float32"))}

@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of dtlr_tpu for NVIDIA Hopper.
 
-Its layout mirrors ``dtlr_tpu/``: ``models/`` (the DINO detector),
+Its layout mirrors ``dtlr_tpu/``: ``models/`` (the DINO detector with a
+ResNet, Swin or ConvNeXt backbone, and the LM rescorer),
 ``ops/`` (pixels, the box-prior attention kernel and its plain version,
 the deformable attention's sampling, the CTC loss and blank synthesis,
 NMS, the matcher), ``eval/`` (decode, metrics, the evaluate entry point
@@ -10,8 +11,9 @@ initialization, the reference's ``.pth`` map), ``data/`` (charsets,
 transforms, the bucketed batcher, npz line datasets, the HWDB synthetic
 stream), ``config/`` (the loader of recipe files) with ``configs/`` (the
 recipe files), ``parallel/`` (data parallelism over ``torch.distributed``),
-``utils/`` (boxes, the rank-aware logger) and ``scripts/`` (the gather
-probe, the data-parallel dry run and step check). The package
+``utils/`` (boxes, the rank-aware logger), ``ngram/`` (the n-gram
+rescoring of the read: the host beam search and its entry point) and
+``scripts/`` (the gather probe, the data-parallel dry run and step check). The package
 imports torch and numpy only; its CUDA sources live in ``csrc/`` and
 are compiled with ``nvcc`` at first use (``ops/flash_attn.py``).
 """

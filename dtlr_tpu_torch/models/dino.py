@@ -4,7 +4,8 @@ encoder, dense decoder cross-attention with the box prior) by default,
 and the reference's (FrozenBatchNorm ResNet-50 or -101, deformable
 encoder and decoder cross-attention, dtlr_tpu/configs/Latin.py) and
 every combination between them that the JAX modules accept, through
-``DinoConfig``'s architecture fields.
+``DinoConfig``'s architecture fields, with the ResNets, the Swin
+Transformers or the ConvNeXts as the backbone.
 
 ``DINO.forward(images, valid_hw, targets=None, train=False, cdn_noise=None)``
 takes ImageNet-normalized (B, H, W, 3) images, as the JAX module does, and
@@ -32,9 +33,11 @@ from torch import nn
 from .. import resolve_device
 from ..utils.boxes import inverse_sigmoid
 from .cdn import CdnDraws, cdn_query_groups, prepare_cdn
+from .convnext import build_convnext
 from .layers import MLP, Conv, Dense, GroupNorm
 from .position_encoding import sine_position_embedding_hw
-from .resnet import ResNet
+from .resnet import RETURN_INDICES, ResNet
+from .swin import build_swin
 from .transformer import DeformableTransformer
 
 
@@ -76,7 +79,9 @@ class DinoConfig:
     #: the backbone's norms (config key ``batch_norm_type``): "group" |
     #: "FrozenBatchNorm2d"
     norm_kind: str = "group"
-    #: "resnet50" | "resnet101"
+    #: "resnet50" | "resnet101", a Swin (``swin.SWIN_CONFIGS``) or a
+    #: ConvNeXt (``convnext.CONVNEXT_CONFIGS``); ``norm_kind`` is the
+    #: ResNets' only
     backbone: str = "resnet50"
     enc_n_points: int = 4
     dec_n_points: int = 4
@@ -90,6 +95,19 @@ class DinoConfig:
 
 FLAGSHIP = DinoConfig()  # bfloat16, as the recipe computes
 NUM_LEVELS = 4  # feature levels: layers 2-4 of the backbone and one more
+
+
+def build_backbone(cfg: DinoConfig) -> nn.Module:
+    """The backbone of ``cfg`` (dtlr_tpu/models/dino.py:123-141): NCHW
+    images in, the features of stages 2-4 (strides 8, 16, 32) out, NCHW;
+    ``num_channels`` their widths."""
+    if cfg.backbone.startswith("resnet"):
+        return ResNet(cfg.dtype, cfg.norm_kind, cfg.backbone)
+    if cfg.backbone.startswith("swin"):
+        return build_swin(cfg.backbone, RETURN_INDICES, cfg.dtype)
+    if cfg.backbone.startswith("convnext"):
+        return build_convnext(cfg.backbone, RETURN_INDICES, cfg.dtype)
+    raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
 def level_pad_mask(valid_hw: torch.Tensor, h: int, w: int, img_h: int,
@@ -130,7 +148,7 @@ class DINO(nn.Module):
         self.num_classes = num_classes
         C = cfg.hidden_dim
         dt = cfg.dtype
-        self.backbone_net = ResNet(dt, cfg.norm_kind, cfg.backbone)
+        self.backbone_net = build_backbone(cfg)
         chans = self.backbone_net.num_channels
         for i in range(NUM_LEVELS):
             if i < len(chans):

@@ -40,8 +40,8 @@ class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype``: flax ``nn.Dense(dtype=...)``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -54,9 +54,9 @@ class Conv(nn.Conv2d):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=padding, bias=bias)
+                         padding=padding, bias=bias, groups=groups)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -30,8 +30,12 @@ import numpy as np
 import torch
 from torch import nn
 
-#: attention projections whose flax kernels are DenseGeneral over heads
-_HEAD_PROJ = re.compile(r"(self_attn|cross_attn)\.(q_proj|k_proj|v_proj|out_proj)\.")
+from ..weights import OUT_PROJECTIONS
+
+#: attention projections whose flax kernels are DenseGeneral over heads:
+#: DINO's, and the LM rescorer's flax MultiHeadDotProductAttention
+_HEAD_PROJ = re.compile(r"(self_attn|cross_attn|attn_\d+)\."
+                        r"(q_proj|k_proj|v_proj|out_proj|query|key|value|out)\.")
 
 
 def _flax_leaf(name: str, x: np.ndarray, n_heads: int):
@@ -42,7 +46,7 @@ def _flax_leaf(name: str, x: np.ndarray, n_heads: int):
         leaf, x = "kernel", x.transpose(2, 3, 1, 0)
     elif leaf == "weight" and x.ndim == 2:  # dense (out, in) -> (in, out)
         leaf, x = "kernel", x.T
-        if head is not None and head.group(2) == "out_proj":
+        if head is not None and head.group(2) in OUT_PROJECTIONS:
             x = x.reshape(n_heads, -1, x.shape[1])          # (M, D, C)
         elif head is not None:
             x = x.reshape(x.shape[0], n_heads, -1)          # (C, M, D)
@@ -50,7 +54,7 @@ def _flax_leaf(name: str, x: np.ndarray, n_heads: int):
             x = x.reshape(x.shape[0], 2, -1)                # (C, 2, C)
     elif leaf == "weight":  # norm
         leaf = "scale"
-    elif leaf == "bias" and head is not None and head.group(2) != "out_proj":
+    elif leaf == "bias" and head is not None and head.group(2) not in OUT_PROJECTIONS:
         x = x.reshape(n_heads, -1)                          # (M, D)
     elif leaf == "bias" and mod[-1] == "qk":
         x = x.reshape(2, -1)                                # (2, C)

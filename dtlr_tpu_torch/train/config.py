@@ -22,8 +22,10 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from .. import config as cfg_lib
+from ..models.convnext import CONVNEXT_CONFIGS
 from ..models.dino import FLAGSHIP, DinoConfig
 from ..models.resnet import NORM_NAMES, STAGES
+from ..models.swin import SWIN_CONFIGS
 from ..models.transformer import DECODER_CA, ENCODER_TYPES
 
 
@@ -195,15 +197,13 @@ REQUIRED = ("num_queries", "hidden_dim", "nheads", "enc_layers", "dec_layers",
             "giou_loss_coef", "backbone", "enc_n_points", "dec_n_points")
 #: the architecture's keys that ``DinoConfig`` reads and the values the
 #: port's modules accept (dtlr_tpu/models/transformer.py:299-307,
-#: resnet.py:52-57)
+#: resnet.py:52-57, dino.py:123-141)
 ACCEPTED = {
     "encoder_type": ENCODER_TYPES,
     "decoder_ca": DECODER_CA,
     "batch_norm_type": tuple(NORM_NAMES),
-    "backbone": tuple(STAGES),
+    "backbone": tuple(STAGES) + tuple(SWIN_CONFIGS) + tuple(CONVNEXT_CONFIGS),
 }
-#: what ROADMAP.md holds for a value the port does not accept
-MISSING = {"backbone": "the Swin and ConvNeXt backbones are ROADMAP.md's Queue 1 item 13"}
 #: the rest of the architecture, which the port has at one value only, as
 #: (key, that value, JAX's default where the key is absent)
 ARCHITECTURE = {
@@ -234,19 +234,17 @@ def _coerce(value, kind):
 
 
 def check_architecture(cfg) -> None:
-    """Refuse a config whose model the port does not have: a backbone
-    other than the ResNets, an encoder, cross-attention or norm that JAX's
-    modules do not know, or another value of a key in ``ARCHITECTURE``
-    (levels, decoder order, dropout, position-encoding temperatures,
-    parameter dtype)."""
+    """Refuse a config whose model the port does not have: a backbone,
+    encoder, cross-attention or norm that JAX's modules do not know, or
+    another value of a key in ``ARCHITECTURE`` (levels, decoder order,
+    dropout, position-encoding temperatures, parameter dtype)."""
     for key, accepted in ACCEPTED.items():
         value = cfg[key] if key in cfg else JAX_DEFAULTS.get(key)
         if value is None:
             raise KeyError(f"the config has no {key!r}")
         if value not in accepted:
             raise NotImplementedError(
-                f"{key} = {value!r}: the port has {key} in {accepted}"
-                + (f"; {MISSING[key]}" if key in MISSING else ""))
+                f"{key} = {value!r}: the port has {key} in {accepted}")
     for key, (want, default) in ARCHITECTURE.items():
         value = cfg[key] if key in cfg else default
         if key not in cfg and default is None:

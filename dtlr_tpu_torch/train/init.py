@@ -30,7 +30,13 @@ Leaf families, by the JAX module that makes each:
   ``bias`` and ``mean`` zero (dtlr_tpu/models/resnet.py:43-46);
 - normal(1): ``level_embed`` and ``tgt_embed`` (transformer.py:309,358)
   and the CDN label encoder ``label_enc`` (dino.py:202-204);
-- the class heads' biases: the focal prior -log(0.99 / 0.01) (dino.py:61).
+- the class heads' biases: the focal prior -log(0.99 / 0.01) (dino.py:61);
+- Swin's ``relative_position_bias_table``: flax's ``truncated_normal(0.02)``,
+  a unit normal truncated at +-2 times 0.02 (no rescaling: its std is
+  0.02 * 0.8796), dtlr_tpu/models/swin.py:56-60;
+- ConvNeXt's layer scale ``gamma``: the constant 1e-6
+  (dtlr_tpu/models/convnext.py:28); the backbones' LayerNorms take the
+  norm family (scale one, bias zero) and their kernels lecun-normal.
 
 The draws come from an explicit ``torch.Generator``, leaf by leaf in the
 model's parameter order; the model is built on the meta device, so
@@ -45,6 +51,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..models.convnext import LAYER_SCALE
 from ..models.dino import DINO, NUM_LEVELS, DinoConfig
 from .checkpoints import params_to_flax
 
@@ -57,12 +64,19 @@ ZERO = ("mix_up.weight", "mix_down.weight", "bbox_embed.layers_2.", "ca_box_gamm
         "sampling_offsets.weight", "attention_weights.")
 #: parameters drawn from normal(1), by their last name
 UNIT_NORMAL = ("level_embed", "tgt_embed", "label_enc")
+#: the std of flax's truncated_normal for Swin's position bias tables
+BIAS_TABLE_STD = 0.02
 
 
 def family(name: str, ndim: int) -> str:
     """The initializer family of a port parameter: ``zero``, ``normal``,
-    ``prior``, ``ring``, ``one`` or ``lecun``."""
+    ``prior``, ``ring``, ``one``, ``table`` (truncated_normal(0.02)),
+    ``layer_scale`` or ``lecun``."""
     leaf = name.rsplit(".", 1)[-1]
+    if leaf == "relative_position_bias_table":
+        return "table"
+    if leaf == "gamma" and "backbone_net" in name:
+        return "layer_scale"
     if any(z in name for z in ZERO):
         return "zero"
     if name.endswith("sampling_offsets.bias"):
@@ -110,6 +124,12 @@ def draw(name: str, shape, gen: torch.Generator, cfg: DinoConfig) -> torch.Tenso
         return torch.full(shape, FOCAL_PRIOR)
     if kind == "normal":
         return torch.randn(shape, generator=gen)
+    if kind == "layer_scale":
+        return torch.full(shape, LAYER_SCALE)
+    if kind == "table":
+        s = BIAS_TABLE_STD
+        return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, s, -2 * s, 2 * s,
+                                           generator=gen)
     std = lecun_std(shape)
     return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std,
                                        generator=gen)

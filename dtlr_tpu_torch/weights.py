@@ -17,6 +17,9 @@ import numpy as np
 import torch
 from torch import nn
 
+#: DenseGeneral output projections, whose kernels are (M, D, C)
+OUT_PROJECTIONS = ("out_proj", "out")
+
 
 def params_from_npz(path: str) -> Dict[str, np.ndarray]:
     """The npz's ``params/...`` leaves as a flat {path: array} dict."""
@@ -46,7 +49,8 @@ def load_jax_params(tree) -> Dict[str, torch.Tensor]:
         if leaf == "kernel" and x.dim() == 4:  # conv HWIO -> OIHW
             x, leaf = x.permute(3, 2, 0, 1), "weight"
         elif leaf == "kernel":  # dense: reshape to (in, out), transpose
-            n_in = x.shape[0] * x.shape[1] if (x.dim() == 3 and mod[-1] == "out_proj") else x.shape[0]
+            n_in = (x.shape[0] * x.shape[1] if (x.dim() == 3 and mod[-1] in OUT_PROJECTIONS)
+                    else x.shape[0])
             x, leaf = x.reshape(n_in, -1).t(), "weight"
         elif leaf == "bias":
             x = x.reshape(-1)

@@ -20,8 +20,8 @@ config onto the port's settings (``from_config``).
   included) loads to the model JAX's ``build_dino_from_config`` builds
   from it, and at the tiny geometry the port's fresh tree has JAX's
   parameter names and shapes (``jax.eval_shape`` of JAX's init). What
-  the port lacks (a Swin backbone, three levels, dropout, an unknown
-  encoder) is refused, naming it.
+  the port lacks (a Swin variant JAX does not know, three levels,
+  dropout, an unknown encoder) is refused, naming it.
 """
 
 import dataclasses
@@ -225,7 +225,7 @@ def test_recipe_file_builds_jax_s_model(name):
 
 
 @pytest.mark.parametrize("option,match", [
-    ("backbone=swin_T_224_1k", "Swin and ConvNeXt"),
+    ("backbone=swin_X_224_1k", "backbone in"),
     ("num_feature_levels=3", "num_feature_levels = 4"),
     ("dropout=0.1", "dropout = 0.0"),
     ("encoder_type=sparse", "encoder_type in"),

@@ -61,8 +61,10 @@ def seeded(shared: bool, num_classes: int):
     return tree, chip_smoke.tree_sha256(tree)
 
 
-def jax_reading(tree, lines, compute_dtype, shared, batch_size=2):
-    """JAX's reading of the lines (``READING``) with a flat tree."""
+def jax_reading(tree, lines, compute_dtype, shared, batch_size=2, config=JAX_CONFIG,
+                options=None):
+    """JAX's reading of the lines (``READING``) with a flat tree, by the
+    model of ``config`` with ``options`` (key: value) set."""
     import jax
 
     from dtlr_tpu.config import load_config
@@ -71,7 +73,9 @@ def jax_reading(tree, lines, compute_dtype, shared, batch_size=2):
     from dtlr_tpu.ops.pixels import prep_images
 
     jax.config.update("jax_platforms", "cpu")
-    cfg = load_config(JAX_CONFIG)
+    cfg = load_config(config)
+    for k, v in (options or {}).items():
+        setattr(cfg, k, v)
     cfg.num_classes = tree["params/class_embed/fc/kernel"].shape[-1]
     cfg.dn_labelbook_size = tree["params/label_enc"].shape[0] - 1
     cfg.compute_dtype = compute_dtype

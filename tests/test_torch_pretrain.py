@@ -285,7 +285,7 @@ def test_config_file_run_lists_the_keys_it_does_not_read(files, tmp_path):
     """-c Latin_TPU.py with --lines: a fresh start sized by the lines'
     charset, the config's keys that the port does not read in the log,
     the run's config_cfg.py with the derived class count; a config
-    whose model the port lacks (a Swin backbone) is refused."""
+    whose model the port lacks (a backbone JAX does not know) is refused."""
     res = pretrain.main(["-c", "dtlr_tpu_torch/configs/Latin_TPU.py", "--lines",
                          str(files / "lines.npz"), "--output_dir", str(tmp_path),
                          "--epochs", "1", "--steps_per_epoch", "1", "--eval_every", "1",
@@ -296,7 +296,7 @@ def test_config_file_run_lists_the_keys_it_does_not_read(files, tmp_path):
     assert "config keys the port does not read" in info and "compilation_cache_dir" in info
     cfg = load_config(str(tmp_path / "config_cfg.py"))
     assert (cfg.num_classes, cfg.epochs, cfg.steps_per_epoch) == (NUM_CLASSES, 1, 1)
-    with pytest.raises(NotImplementedError, match="Swin and ConvNeXt"):
+    with pytest.raises(NotImplementedError, match="backbone in"):
         pretrain.main(["-c", "dtlr_tpu_torch/configs/Latin.py", "--lines",
                        str(files / "lines.npz"), "--output_dir", str(tmp_path / "swin"),
-                       "--device", "cpu", "--options", "backbone=swin_T_224_1k"])
+                       "--device", "cpu", "--options", "backbone=swin_X_224_1k"])

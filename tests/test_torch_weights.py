@@ -126,6 +126,16 @@ def test_port_imports_no_jax_pil_or_dtlr_tpu():
     assert not bad
 
 
+def test_import_scan_covers_every_module():
+    """The scan above reads every module of the package, the n-gram
+    decoder's, the Swin and ConvNeXt backbones' and the LM rescorer's among
+    them."""
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {f"dtlr_tpu_torch/{m}.py" for m in (
+        "ngram/lm_decode", "ngram/preprocessing", "ngram/rescore", "models/swin",
+        "models/convnext", "models/lm_rescorer")} <= scanned
+
+
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
