@@ -5,6 +5,9 @@
 
 Phases, each printing one JSON line with its seconds:
   device   the card, its power limit, TF32 off for matmuls and convolutions
+  native   csrc/native.cpp built with this host's C++ compiler (the port's
+           native host runtime: the data path's upscale and normalize, the
+           metrics, the image decoders), its seconds
   data     the recipes' batchers (dtlr_tpu_torch.data.batching): the first 4
            training batches of the finetune recipe over the fixture lines
            and of the pretraining recipe (reuse pool, character boxes) over
@@ -56,6 +59,24 @@ Phases, each printing one JSON line with its seconds:
            best point, the files written; forward ms per batch, NMS ms
            per NMS value and batch, decode ms per point, lines/s; each
            dtype twice (the first call cold, then the same again)
+  datasets the real datasets' loaders on dtlr_tpu_torch/assets/smoke_datasets/
+           (a RIMES layout of JPEG lines, an HWDB layout of PNG lines, written
+           by tests/test_torch_datasets_fixture.py): (a) every file decoded
+           to the sha256 of PIL's pixels (the native decoders, and two files
+           per format through the numpy versions; ms per line per format),
+           Levenshtein and the edit operations on the sweep fixture's string
+           pairs, the upscale and the normalize on the decoded lines equal
+           to their plain versions (ms per call); (b) python -m
+           dtlr_tpu_torch.eval.evaluate --dataset RIMES and --dataset HWDB
+           with the flagship in fp32 and bf16: the strings within CER 0.01 /
+           0.02 of the JAX package's evaluate (smoke_datasets_ref.json), 6
+           launches of mha_box and of mha per forward, lines/s; (c) two
+           steps of python -m dtlr_tpu_torch.train.finetune --dataset_file
+           RIMES from the flagship, each batch's images the JAX package's
+           (its hashes in the reference), finite losses, ms per step, the
+           decode's share of the host's batch time; (d) the sweep's decode
+           of the fixture lines' fp32 forward with the native metrics and
+           with the plain ones: the same records, ms per point
   train    CTC finetuning with the recipe's trainer (dtlr_tpu_torch.train.engine,
            full-model optimizer) from the flagship checkpoint on the eight
            lines: the first step in float32 and in bfloat16 against the JAX
@@ -1824,6 +1845,11 @@ NGRAM_LEXICON = {"lexicon_from_corpus": True, "lexicon_margin": 5.0}
 NGRAM_SWEEP = "lm_weight=0.5,0.75"
 #: the read gates of PERF.md section 2, on the strings against JAX's
 NGRAM_TOL = {"float32": 0.01, "bfloat16": 0.02}
+#: the datasets phase: a RIMES (JPEG) and an HWDB (PNG) layout of the
+#: WORDS lines and the JAX package's readings of them, written by
+#: tests/test_torch_datasets_fixture.py
+DATASETS_ROOT = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_datasets")
+DATASETS_REF = os.path.join(DATASETS_ROOT, "smoke_datasets_ref.json")
 BACKBONES_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_backbones_ref.npz")
 BACKBONES_CONFIG = os.path.join(CONFIGS, "Latin_TPU.py")
 #: the backbones held against JAX's reading, and the reference's own
@@ -2311,6 +2337,285 @@ def phase_sweep(card):
     failed = [r["compute_dtype"] for r in records if not r["ok"]]
     if failed:
         raise AssertionError(f"sweep phase checks failed: {failed}")
+    return records, launches
+
+
+#: the datasets phase's read gates on the strings against JAX's (PERF.md
+#: section 2, as the ngram phase's)
+DATASETS_TOL = {"float32": 0.01, "bfloat16": 0.02}
+#: fixture lines timed through the plain decoders, per format
+PLAIN_DECODES = 2
+
+
+def build_native():
+    """csrc/native.cpp built with this host's compiler (the data phase's
+    batchers already load it): seconds and the compiler's version."""
+    from dtlr_tpu_torch.ops import _build
+    from dtlr_tpu_torch.runtime import native
+
+    built = _build.build_host(native.SOURCE)
+    version = subprocess.run([_build.host_compiler(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    return {"seconds": built["seconds"], "compiler": version, "flags": list(_build.HOST_FLAGS)}
+
+
+def fixture_formats(ref):
+    """The fixture's files by format: RIMES lines 0-7 RGB 4:2:0 JPEG, 8-15
+    gray JPEG; HWDB lines 0-7 gray PNG, 8-15 RGB PNG."""
+    formats = {}
+    for rel in ref["pixels_sha256"]:
+        k = int(os.path.splitext(os.path.basename(rel))[0].removeprefix("line"))
+        fmt = (("jpeg_rgb_420" if k < 8 else "jpeg_gray") if rel.endswith(".jpg")
+               else ("png_gray" if k < 8 else "png_rgb"))
+        formats.setdefault(fmt, []).append(rel)
+    return formats
+
+
+def stat_ms(values):
+    return {"median": float(np.median(values)), "max": float(np.max(values)),
+            "count": len(values)} if values else None
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def string_pairs():
+    """The sweep fixture's strings paired: each JAX reading of
+    smoke_lines.npz (greedy, NMS) with its text, and every text with
+    every other, as characters and as words."""
+    with np.load(LINES) as z:
+        texts = [str(t) for t in z["texts"]]
+        readings = [str(t) for k in ("jax_greedy", "jax_nms") for t in z[k]]
+    pairs = list(zip(readings, texts + texts)) + [(a, b) for a in texts for b in texts]
+    return [(list(a), list(b)) for a, b in pairs] + [(a.split(" "), b.split(" "))
+                                                     for a, b in pairs]
+
+
+def datasets_host(ref, native_build):
+    """(a): the decoders against PIL's hashes, the native functions against
+    their plain versions, each one's ms."""
+    from dtlr_tpu_torch.data import images
+    from dtlr_tpu_torch.data.batching import normalize_plain
+    from dtlr_tpu_torch.data.transforms import _upscale
+    from dtlr_tpu_torch.eval import metrics
+    from dtlr_tpu_torch.runtime import native
+
+    bad, decode, lines = [], {}, []
+    for fmt, rels in fixture_formats(ref).items():
+        nat, plain = [], []
+        for j, rel in enumerate(rels):
+            with open(os.path.join(DATASETS_ROOT, rel), "rb") as fh:
+                data = fh.read()
+            rgb, ms = timed(images.decode_image, data)
+            nat.append(ms)
+            if image_sha256(rgb) != ref["pixels_sha256"][rel]:
+                bad.append(rel)
+            if j < PLAIN_DECODES:
+                slow, ms = timed(images.decode_image, data, False)
+                plain.append(ms)
+                if not np.array_equal(slow, rgb):
+                    bad.append(f"{rel} (plain)")
+            lines.append(rgb.astype(np.float32) / 255.0)
+        decode[fmt] = {"lines": len(rels), "native_ms_per_line": stat_ms(nat),
+                       "plain_ms_per_line": stat_ms(plain)}
+    pairs = string_pairs()
+    funcs = {"levenshtein": (native.levenshtein, metrics.levenshtein_plain),
+             "edit_operations": (native.edit_ops, metrics.edit_operations_plain)}
+    per_call, unequal = {}, []
+    for name, (fast, slow) in funcs.items():
+        t_fast, t_slow = [], []
+        for a, b in pairs:
+            x, ms_fast = timed(fast, a, b)
+            y, ms_slow = timed(slow, a, b)
+            t_fast.append(ms_fast * 1e3)
+            t_slow.append(ms_slow * 1e3)
+            if x != y:
+                unequal.append((name, "".join(a), "".join(b)))
+        per_call[name] = {"native_us": stat_ms(t_fast), "plain_us": stat_ms(t_slow)}
+    up_fast, up_slow, norm_fast, norm_slow, pixels = [], [], [], [], 0
+    for img in lines:
+        h, w = img.shape[:2]
+        oh, ow = 128, round(w * 128 / h)
+        x, ms_fast = timed(native.resize_bilinear, img, oh, ow)
+        y, ms_slow = timed(_upscale, img, oh, ow)
+        up_fast.append(ms_fast)
+        up_slow.append(ms_slow)
+        dst = np.zeros((128, 1024, 3), np.float32)
+        _, ms_fast = timed(native.normalize_into, x[:, :1024], dst)
+        z, ms_slow = timed(normalize_plain, x[:, :1024])
+        norm_fast.append(ms_fast)
+        norm_slow.append(ms_slow)
+        pixels += int((x != y).sum()) + int((dst[:, :z.shape[1]] != z).sum())
+    rec = {"phase": "datasets", "part": "host", "native_build": native_build,
+           "pixels_sha256_mismatched": bad, "decode": decode,
+           "string_pairs": len(pairs), "unequal_to_plain": unequal[:5], "per_call": per_call,
+           "upscale_ms": {"native": stat_ms(up_fast), "plain": stat_ms(up_slow)},
+           "normalize_ms": {"native": stat_ms(norm_fast), "plain": stat_ms(norm_slow)},
+           "resize_and_normalize_pixels_differing": pixels}
+    rec["ok"] = not bad and not unequal and pixels == 0
+    return rec
+
+
+def datasets_evaluate(card, ref):
+    """(b): the evaluate entry point on both layouts' test split in fp32
+    and bf16 against JAX's strings; launches per forward."""
+    import tempfile
+
+    from dtlr_tpu_torch.eval import evaluate, metrics
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+
+    records, launches = [], {}
+    for name in ("RIMES", "HWDB"):
+        want = ref["evaluate"][name]
+        for dt in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            reset_launches()
+            with tempfile.TemporaryDirectory() as out_dir:
+                res = evaluate.main(["--params", PARAMS, "--config", FLAGSHIP_CONFIG,
+                                     "--dataset", name, "--data_root", DATASETS_ROOT,
+                                     "--mode", "test", "--compute_dtype", dt,
+                                     "--out_dir", out_dir])
+            torch.cuda.synchronize()
+            got = dict(flash_mha.launches)
+            launches[f"datasets_{name}_{dt}"] = got
+            n_batches = len(res["timings"]["forward_ms"])
+            n = FLAGSHIP.dec_layers * n_batches
+            preds, jax_preds = res["best"]["preds"], want[dt]["strings"]
+            cer = metrics.mean_cer(preds, jax_preds) if len(preds) == len(jax_preds) else 1.0
+            rec = {"phase": "datasets", "part": "evaluate", "dataset": name,
+                   "compute_dtype": dt, "lines": res["lines"], "batches": n_batches,
+                   "cer_vs_jax": cer, "tol": DATASETS_TOL[dt],
+                   "lines_differing": sum(a != b for a, b in zip(preds, jax_preds)),
+                   "cer_vs_texts": metrics.corpus_cer(preds, want["texts"]),
+                   "jax_cer_vs_texts": want[dt]["cer_vs_texts"], "launches": got,
+                   "forward_ms_per_batch": res["timings"]["forward_ms"],
+                   "lines_per_s": res["lines_per_s"], "seconds": time.perf_counter() - t0,
+                   "card": card}
+            rec["ok"] = (res["best"]["gts"] == want["texts"] and cer <= DATASETS_TOL[dt]
+                         and got == {"mha_box": n, "mha": n, "mha_masked": 0})
+            records.append(rec)
+            emit(rec)
+    return records, launches
+
+
+def datasets_finetune(card, ref, workdir):
+    """(c): two CTC steps of the finetune entry point on the RIMES layout
+    from the flagship, the batches JAX's; the decode's share of the
+    host's batch time."""
+    from dtlr_tpu_torch.data import batching, loaders
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+    from dtlr_tpu_torch.train import finetune
+
+    decode_ms, batch_ms = [], []
+    load_image, make_batch = loaders.load_image, batching.BucketBatcher._make_batch
+
+    def timed_load(path):
+        out, ms = timed(load_image, path)
+        decode_ms.append(ms)
+        return out
+
+    def timed_batch(self):
+        out, ms = timed(make_batch, self)
+        batch_ms.append(ms)
+        return out
+
+    loaders.load_image, batching.BucketBatcher._make_batch = timed_load, timed_batch
+    steps, unspy = spy_timed_steps()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        cli = finetune.main(["--dataset_file", "RIMES", "--data_root", DATASETS_ROOT,
+                             "--pretrain_dir", PARAMS, "--full_model", "--output_dir",
+                             os.path.join(workdir, "rimes_ft"), "--epochs", "1",
+                             "--options", "max_iterations=2"])
+    finally:
+        unspy()
+        loaders.load_image, batching.BucketBatcher._make_batch = load_image, make_batch
+    torch.cuda.synchronize()
+    got = dict(flash_mha.launches)
+    hashes = [s["batch"]["images"] for s in steps]
+    # the steps, the first step's training CER and the val split's one batch
+    n = FLAGSHIP.dec_layers * (len(steps) + 2)
+    rec = {"phase": "datasets", "part": "finetune", "train": cli["train"], "eval": cli["eval"],
+           "batch_sha256": hashes,
+           "batches_are_jaxs": hashes == ref["finetune_batches_sha256"],
+           "ms_per_step": [s["ms"] for s in steps], "launches": got,
+           "decode_ms": sum(decode_ms), "host_batch_ms": sum(batch_ms),
+           "batches_made": len(batch_ms), "lines_decoded": len(decode_ms),
+           "decode_share_of_host_batch_time": sum(decode_ms) / max(sum(batch_ms), 1e-9),
+           "seconds": time.perf_counter() - t0, "card": card}
+    rec["ok"] = (len(steps) == 2 and rec["batches_are_jaxs"]
+                 and math.isfinite(cli["train"]["loss"]) and cli["train"]["skipped"] == 0
+                 and math.isfinite(cli["eval"]["cer"])
+                 and got == {"mha_box": n, "mha": n, "mha_masked": 0})
+    emit(rec)
+    return rec, got
+
+
+def datasets_sweep_decode(card):
+    """(d): the sweep's decode of the fixture lines' fp32 forward with the
+    native metrics and with the plain ones: the same records, ms a point."""
+    from dtlr_tpu_torch.data.batching import make_batcher
+    from dtlr_tpu_torch.data.loaders import NpzLines, eval_iter
+    from dtlr_tpu_torch.eval import evaluate, metrics
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+    from dtlr_tpu_torch.train.config import RECIPE
+
+    model = evaluate.load_model(PARAMS, "cuda", "float32")
+    ds = NpzLines(LINES)
+    reset_launches()
+    batches = make_batcher(RECIPE, eval_iter(ds), False, 0)
+    try:
+        outputs = evaluate.forward_batches(model, iter(batches))
+    finally:
+        batches.stop()
+    torch.cuda.synchronize()
+    got = dict(flash_mha.launches)
+    grid = evaluate.sweep_grid(True)
+    quiet = lambda msg: None
+    native_run = evaluate.sweep(outputs, ds.charset, grid, log=quiet)
+    fast = metrics.levenshtein, metrics.edit_operations
+    metrics.levenshtein, metrics.edit_operations = (metrics.levenshtein_plain,
+                                                    metrics.edit_operations_plain)
+    try:
+        plain_run = evaluate.sweep(outputs, ds.charset, grid, log=quiet)
+    finally:
+        metrics.levenshtein, metrics.edit_operations = fast
+    rec = {"phase": "datasets", "part": "sweep_decode", "points": len(native_run["records"]),
+           "decode_ms_per_point": {"native": stat_ms(native_run["timings"]["decode_ms"]),
+                                   "plain": stat_ms(plain_run["timings"]["decode_ms"])},
+           "records_equal": native_run["records"] == plain_run["records"],
+           "launches": got, "card": card}
+    rec["ok"] = rec["records_equal"] and len(native_run["records"]) > 0
+    emit(rec)
+    del model
+    return rec, got
+
+
+def phase_datasets(card, native_build):
+    """The real datasets' loaders (see the module docstring): (a) the host
+    runtime, (b) evaluate, (c) finetune, (d) the sweep's decode."""
+    import tempfile
+
+    with open(DATASETS_REF) as fh:
+        ref = json.load(fh)
+    host = datasets_host(ref, native_build)
+    emit(host)
+    records, launches = datasets_evaluate(card, ref)
+    with tempfile.TemporaryDirectory() as workdir:
+        ft, launches["datasets_finetune_bf16"] = datasets_finetune(card, ref, workdir)
+    torch.cuda.empty_cache()
+    sweep_rec, launches["datasets_sweep_fp32"] = datasets_sweep_decode(card)
+    records = [host, *records, ft, sweep_rec]
+    failed = [r.get("dataset", r["part"]) + " " + r.get("compute_dtype", "")
+              for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"datasets phase checks failed: {failed}")
     return records, launches
 
 
@@ -3203,6 +3508,9 @@ def main() -> int:
           "tf32_matmul": False, "tf32_cudnn": False,
           "seconds": time.perf_counter() - t0})
 
+    t0 = time.perf_counter()
+    native_build = build_native()
+    native_build["phase_seconds"] = time.perf_counter() - t0
     data_hashes = phase_data()
 
     t0 = time.perf_counter()
@@ -3250,6 +3558,11 @@ def main() -> int:
         emit(record)
 
     sweep_records, sweep_launches = phase_sweep(card)
+
+    t0 = time.perf_counter()
+    datasets_recs, datasets_launches = phase_datasets(card, native_build)
+    emit({"phase": "datasets", "parts": [r.get("dataset", r["part"]) for r in datasets_recs],
+          "seconds": time.perf_counter() - t0})
 
     train_records, train_launches = phase_train(card, data_hashes)
 
@@ -3326,6 +3639,8 @@ def main() -> int:
                              ("deform_latin_scratch", "deform_ctc_finetune", "deform_evaluate",
                               "deform_hwdb_pretrain")},
                           "ngram_bf16": ngram_launches["ngram_bf16"],
+                          **{k: v for k, v in datasets_launches.items()
+                             if not k.endswith("_float32") and not k.endswith("_fp32")},
                           **{k: v for k, v in backbone_launches.items()
                              if not k.endswith("_fp32")}},
              "float32": {"read_fp32_forward": launches["float32"],
@@ -3336,6 +3651,8 @@ def main() -> int:
                          "deform_read_shared_fp32_forward": deform_launches["shared_fp32"],
                          **ddp_launches,
                          **{k: v for k, v in ngram_launches.items() if k != "ngram_bf16"},
+                         **{k: v for k, v in datasets_launches.items()
+                            if k.endswith("_float32") or k.endswith("_fp32")},
                          **{k: v for k, v in backbone_launches.items() if k.endswith("_fp32")}}}
     by_path = {name + suffix: {path: counts[name] for path, counts in paths[dt].items()}
                for name in flash_attn.KERNELS

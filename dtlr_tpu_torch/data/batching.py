@@ -104,6 +104,8 @@ def collate(samples: Sequence[dict], max_targets: int, w_max: int = 1344, h_quan
     round(255 x) and leaves the normalization to the device
     (ops/pixels.py); otherwise pixels are ImageNet-normalized here (or
     taken as they are with ``normalize_pixels=False``)."""
+    from ..runtime import native
+
     B = len(samples)
     hmax = _round_up(max(s["image"].shape[0] for s in samples), h_quant)
     wmax = w_max
@@ -128,8 +130,8 @@ def collate(samples: Sequence[dict], max_targets: int, w_max: int = 1344, h_quan
             images[i, :h, :w] = img.astype(np.uint8)
         elif not normalize_pixels:
             images[i, :h, :w] = img
-        else:
-            images[i, :h, :w] = (img - T.IMAGENET_MEAN) / T.IMAGENET_STD
+        else:  # in the native runtime, as the JAX package does
+            native.normalize_into(img, images[i])
         valid_hw[i] = (h, w)
         lab = np.asarray(s.get("labels", []), np.int32).reshape(-1)
         n = min(len(lab), max_targets)
@@ -139,6 +141,11 @@ def collate(samples: Sequence[dict], max_targets: int, w_max: int = 1344, h_quan
         valid[i, :n] = True
         texts.append(s.get("text", ""))
     return Batch(images, valid_hw, labels, boxes, valid, texts)
+
+
+def normalize_plain(img: np.ndarray) -> np.ndarray:
+    """The ImageNet normalization of ``collate`` in numpy."""
+    return (img - T.IMAGENET_MEAN) / T.IMAGENET_STD
 
 
 class BucketBatcher:

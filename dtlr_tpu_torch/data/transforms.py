@@ -9,10 +9,13 @@ so a seed gives the same images there and here.
 ``_interp_resize`` is the one place the JAX package leaves numpy: it
 upscales with its C++ helper (dtlr_tpu/runtime/native.cpp,
 ``resize_bilinear_f32``) and downscales with PIL's bilinear filter. Here
-both are torch ops on CPU tensors that compute the same bytes:
-- ``_upscale``: native.cpp's half-pixel bilinear, whose build (``-O3
+the upscale is the port's own native runtime (``runtime/native.py``),
+and the downscale torch ops on CPU tensors, computing the same bytes:
+- the upscale: native.cpp's half-pixel bilinear, whose build (``-O3
   -march=native``) contracts each ``a + (b - a) * w`` into one fused
-  multiply-add; ``_fma32`` rounds as that instruction does.
+  multiply-add; the port's C++ writes those as ``std::fmaf``.
+  ``_upscale`` is its plain version in torch: ``_fma32`` rounds as that
+  instruction does.
 - ``_pil_bilinear``: PIL's two-pass resampler for 8-bit images
   (libImaging/Resample.c): triangle-filter coefficients scaled by the
   larger of 1 and the reduction factor, as 22-bit fixed point, a
@@ -137,7 +140,9 @@ def _interp_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     (antialiased, through uint8) otherwise, as the JAX package does."""
     h, w = img.shape[:2]
     if out_h >= h and out_w >= w:
-        return _upscale(img, out_h, out_w)
+        from ..runtime import native
+
+        return native.resize_bilinear(img, out_h, out_w)
     return _pil_bilinear(img, out_h, out_w)
 
 

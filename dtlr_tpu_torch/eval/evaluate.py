@@ -2,8 +2,8 @@
 dtlr_tpu/eval/evaluate.py).
 
 Usage:
-    python -m dtlr_tpu_torch.eval.evaluate (--lines lines.npz | --dataset HWDB_synth \
-        --data_root data [--eval_seed 0]) [--config run/config_cfg.py] \
+    python -m dtlr_tpu_torch.eval.evaluate (--lines lines.npz | --dataset NAME \
+        [--mode test] --data_root data [--eval_seed 0]) [--config run/config_cfg.py] \
         (--params artifacts/r4ft_params.npz | --ckpt_dir outputs/finetune [--ema]) \
         [--NMS 0.5 --TH 0.3 | --sweep [--sweep_th 0.3]] \
         [--metrics default|CER_only|chinese|cipher] [--max_images N] \
@@ -11,10 +11,14 @@ Usage:
         [--compute_dtype bfloat16|float32] [--options key=value ...]
 
 ``--lines`` is an npz of pre-rendered lines (``data/loaders.py``'s
-``NpzLines``); ``--dataset HWDB_synth`` draws ``--max_images`` (default
-64) Chinese lines from the glyph bank under ``--data_root``/HWDB_gnt,
-seeded 321 + ``--eval_seed`` (dtlr_tpu/eval/evaluate.py:233-260). They
-are batched by the recipe's ``BucketBatcher`` without augmentation. The
+``NpzLines``); ``--dataset`` names a real dataset under ``--data_root``
+(IAM, READ, RIMES, HWDB, borg, copiale, google1000: the split ``--mode``,
+its images decoded by ``data/images.py``, its charset the one the model's
+class head must match), or ``HWDB_synth``, which draws ``--max_images``
+(default 64) Chinese lines from the glyph bank under
+``--data_root``/HWDB_gnt, seeded 321 + ``--eval_seed``
+(dtlr_tpu/eval/evaluate.py:233-274). They are batched by the recipe's
+``BucketBatcher`` without augmentation. The
 settings (data, model geometry, compute dtype) are a config file's with
 ``--config`` (``dtlr_tpu_torch/configs/``, or a training run's dumped
 ``config_cfg.py``), ``--options`` overriding its keys, else the recipe's
@@ -372,7 +376,9 @@ def parse_args(argv=None):
     src.add_argument("--ckpt_dir", help="a training run's output_dir")
     lines = p.add_mutually_exclusive_group(required=True)
     lines.add_argument("--lines", help="npz of pre-rendered lines")
-    lines.add_argument("--dataset", help="HWDB_synth (lines from the glyph bank)")
+    lines.add_argument("--dataset", help="IAM, READ, RIMES, HWDB, borg, copiale, google1000 "
+                                          "under --data_root, or HWDB_synth (lines from the "
+                                          "glyph bank)")
     p.add_argument("--mode", default="test", choices=["val", "test", "valid"])
     p.add_argument("--data_root", default="./data")
     p.add_argument("--eval_seed", type=int, default=0,
@@ -407,7 +413,8 @@ def eval_lines(args, data_cfg):
         ds = NpzLines(args.lines)
         return ds, ds.charset, ds.token_based, os.path.splitext(os.path.basename(args.lines))[0]
     if args.dataset != "HWDB_synth":
-        build_dataset(args.dataset, args.mode, root=args.data_root)  # raises
+        ds = build_dataset(args.dataset, args.mode, root=args.data_root)
+        return ds, ds.charset, ds.token_based, args.dataset
     gen = hwdb_stream(args.data_root, 321 + args.eval_seed, data_cfg.hwdb_charset_pickle,
                       data_cfg.hwdb_glyphs_per_line)
     n = args.max_images if args.max_images > 0 else 64

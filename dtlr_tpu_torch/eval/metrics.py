@@ -4,7 +4,11 @@ divided by the ground truth's length, averaged over lines (``mean_cer``,
 ``mean_wer``) or summed over a corpus after the reference's string
 standardization (``corpus_cer``, ``corpus_wer``); AR and CR of the
 Chinese lines (``ar_cr``) and SER and WA of the ciphers (``ser_wa``)
-over label sequences (reference evaluation.py:214-292, 543-582)."""
+over label sequences (reference evaluation.py:214-292, 543-582).
+
+The distance and the edit operations run in the native host runtime
+(``runtime/native.py``), as the JAX package's do; ``levenshtein_plain``
+and ``edit_operations_plain`` are their numpy versions."""
 
 from __future__ import annotations
 
@@ -15,6 +19,13 @@ import numpy as np
 
 
 def levenshtein(a: Sequence, b: Sequence) -> int:
+    """Edit distance between two sequences of hashable items."""
+    from ..runtime import native
+
+    return native.levenshtein(a, b)
+
+
+def levenshtein_plain(a: Sequence, b: Sequence) -> int:
     if len(a) < len(b):
         a, b = b, a
     if len(b) == 0:
@@ -59,6 +70,12 @@ def edit_operations(pred: Sequence, gt: Sequence) -> Tuple[int, int, int]:
     """(substitutions, deletions, insertions) turning ``pred`` into ``gt``
     along one DP backtrace (reference evaluation.py:242-284): a deletion
     is a ground-truth item the prediction lacks."""
+    from ..runtime import native
+
+    return native.edit_ops(pred, gt)
+
+
+def edit_operations_plain(pred: Sequence, gt: Sequence) -> Tuple[int, int, int]:
     m, n = len(pred), len(gt)
     dp = np.zeros((m + 1, n + 1), np.int32)
     dp[:, 0] = np.arange(m + 1)

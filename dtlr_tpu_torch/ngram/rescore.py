@@ -9,7 +9,7 @@ Usage:
 The YAML is the JAX package's flat format (dtlr_tpu_torch/ngram/*.yaml
 are copies of its files) with the same keys:
     lines: lines.npz                    # pre-rendered lines (NpzLines)
-    dataset: IAM                        # JAX's datasets: they need PIL
+    dataset: IAM                        # a real dataset under data_root (mode: test)
     model_config: outputs/run/config_cfg.py   # optional: else the recipe
     ckpt_dir: outputs/run               # a train state; the output dir
     params: artifacts/r4ft_params.npz   # optional: npz or reference .pth
@@ -26,9 +26,12 @@ are copies of its files) with the same keys:
     batch_size: 8
 
 The lines come from ``lines`` (an npz, as the evaluate CLI's
-``--lines``): the JAX package's ``dataset: synthetic`` renders with PIL
-and fonts and its real datasets decode JPEGs with PIL, so any
-``dataset`` raises with ``data/loaders.py``'s ``NEEDS_PIL`` reason. The
+``--lines``), or from ``dataset`` (IAM, READ, RIMES, HWDB, borg, copiale,
+google1000) under ``data_root`` (default ``./data``), split ``mode``
+(default ``test``), as the JAX package builds it; ``dataset: synthetic``
+renders with PIL and fonts and raises with ``data/loaders.py``'s
+``NEEDS_PIL`` reason. ``dtlr_tpu_torch/ngram/smoke_words.yaml`` runs as
+it is, on the repository's own lines, weights and corpus. The
 weights are ``params`` where given, else the newest train state under
 ``ckpt_dir`` (``checkpoint``, else ``checkpoint_best_regular``, as JAX's
 ``try_resume`` falls back). One forward per batch on the device; the
@@ -85,8 +88,9 @@ def load_yaml(path: str) -> dict:
     return out
 
 
-def open_lines(ycfg: dict) -> NpzLines:
-    """The config's lines: ``lines`` (an npz); a JAX ``dataset`` raises."""
+def open_lines(ycfg: dict):
+    """The config's lines: ``lines`` (an npz), else ``dataset`` under
+    ``data_root``, split ``mode``."""
     if ycfg.get("lines"):
         return NpzLines(ycfg["lines"])
     name = ycfg.get("dataset")

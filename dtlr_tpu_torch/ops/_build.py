@@ -1,8 +1,11 @@
 """Build the port's CUDA sources (``dtlr_tpu_torch/csrc/*.cu``) with nvcc
-for sm_90a into shared libraries with a plain C interface, loaded with
+for sm_90a, and its host source (``csrc/native.cpp``) with the host's C++
+compiler, into shared libraries with a plain C interface, loaded with
 ctypes. Each source gets one library under ``dtlr_tpu_torch/build/``,
 named by the source's hash, so an edited source is rebuilt and an
-unchanged one is not. Nothing here runs when a module is imported.
+unchanged one is not; a library is written under a temporary name and
+moved into place, so processes that build at once do not collide.
+Nothing here runs when a module is imported.
 """
 
 from __future__ import annotations
@@ -76,6 +79,45 @@ def build(sources: Sequence[str]) -> List[Dict]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return results
+
+
+#: the host build: no -march=native, and no contraction of a * b + c into a
+#: fused multiply-add unless the source asks for one (std::fma), so the
+#: results do not depend on the host's compiler or CPU
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
+
+
+def host_compiler() -> str:
+    """$CXX, else g++ from the PATH."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler: set CXX or put g++ on PATH")
+    return cxx
+
+
+def build_host(source: str) -> Dict:
+    """Compile a host source into its library; raises with the compiler's
+    stderr if it fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = library_path(source)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([host_compiler(), *HOST_FLAGS, "-o", tmp, source],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{host_compiler()} {os.path.basename(source)} failed "
+                           f"({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return {"source": source, "path": so, "seconds": time.perf_counter() - t0}
+
+
+@functools.cache
+def load_host(source: str) -> ctypes.CDLL:
+    """The host source's library, built first if it is not there."""
+    so = library_path(source)
+    if not os.path.exists(so):
+        build_host(source)
+    return ctypes.CDLL(so)
 
 
 def sass_counts(library: str, opcodes: Sequence[str] = ("HMMA", "HGMMA")) -> Dict[str, Dict[str, int]]:

@@ -14,6 +14,8 @@ Usage:
     python -m dtlr_tpu_torch.train.finetune -c dtlr_tpu_torch/configs/HWDB_full_TPU.py \\
         --dataset_file HWDB_synth --data_root data --pretrain_dir outputs/hwdb \\
         --output_dir outputs/hwdb_ft [--epochs 1] [--options max_iterations=2000 ...]
+    python -m dtlr_tpu_torch.train.finetune --dataset_file RIMES --data_root data \
+        --pretrain_dir artifacts/r4ft_params.npz --full_model --output_dir outputs/rimes_ft
     python -m dtlr_tpu_torch.train.finetune --lines lines.npz \\
         --pretrain_dir artifacts/r4ft_params.npz --full_model \\
         --output_dir outputs/finetune [--epochs 2] [--device cuda] \\
@@ -24,7 +26,11 @@ run's dumped ``config_cfg.py``), ``--options`` overriding its keys;
 without it the recipe (``train/config.py``'s ``RECIPE`` and the model's
 ``DinoConfig``), ``--options`` overriding their fields.
 
-Lines: ``--dataset_file HWDB_synth`` composes Chinese lines from the
+Lines: ``--dataset_file`` names a real dataset under ``--data_root``
+(IAM, READ, RIMES, HWDB, borg, copiale, google1000; data/loaders.py):
+its ``train`` split reshuffled from ``default_rng(0)``, its ``val`` split
+held out (dtlr_tpu/train/finetune.py:194-200). ``--dataset_file
+HWDB_synth`` composes Chinese lines from the
 glyph bank under ``--data_root``/HWDB_gnt, the training stream seeded by
 ``--seed`` and ``eval_set_size`` held-out lines by ``--seed`` + 999
 (dtlr_tpu/train/finetune.py:171-204); ``--lines`` is an npz of
@@ -73,7 +79,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("DTLR port CTC finetuning")
     p.add_argument("-c", "--config_file", default=None,
                    help="config file (default: the finetune recipe, RECIPE)")
-    p.add_argument("--dataset_file", default=None, help="HWDB_synth, or pass --lines")
+    p.add_argument("--dataset_file", default=None,
+                   help="IAM, READ, RIMES, HWDB, borg, copiale, google1000 under --data_root, "
+                        "or HWDB_synth; or pass --lines")
     p.add_argument("--data_root", default="./data")
     p.add_argument("--lines", default=None, help="npz of pre-rendered training lines")
     p.add_argument("--val_lines", default=None, help="npz of validation lines (default --lines)")
@@ -107,9 +115,11 @@ def line_sources(args, cfg):
                           cfg.hwdb_glyphs_per_line)
         return train.charset, iter(train), [val.sample() for _ in range(cfg.eval_set_size)]
     if args.dataset_file is not None:
-        build_dataset(args.dataset_file, "train", root=args.data_root)  # raises
+        train_ds = build_dataset(args.dataset_file, "train", root=args.data_root)
+        val_ds = build_dataset(args.dataset_file, "val", root=args.data_root)
+        return train_ds.charset, dataset_iter(train_ds), val_ds
     if args.lines is None:
-        raise ValueError("pass --lines (an npz of lines) or --dataset_file HWDB_synth")
+        raise ValueError("pass --lines (an npz of lines) or --dataset_file")
     train_ds = NpzLines(args.lines)
     val_ds = NpzLines(args.val_lines) if args.val_lines else train_ds
     return train_ds.charset, dataset_iter(train_ds), val_ds

@@ -29,7 +29,12 @@ held-out stream by ``--seed`` + 1; ``--lines`` reads pre-rendered lines
 with character boxes from an npz (``data/loaders.py``'s ``NpzLines``;
 the Latin renderer needs PIL and fonts and is not ported), reshuffled
 from ``default_rng(0)``, the held-out lines in order from ``--val_lines``
-(default the same file). Either way through the recipe's
+(default the same file). ``--dataset_file`` with a real dataset's name
+(IAM, READ, RIMES, HWDB, borg, copiale, google1000) builds its ``train``
+and ``val`` splits under ``--data_root``; their lines have no character
+boxes, so only ``--eval`` reads them (the held-out ``val`` lines) and a
+training run raises, as JAX's pretraining refuses them. Either way
+through the recipe's
 ``BucketBatcher`` (seed: the training stream's; with the reuse pool),
 as dtlr_tpu/train/pretrain.py:214-246 has it. The class count is the
 charset's, the CDN label book keeps the config family's offset (1 for
@@ -76,7 +81,7 @@ import torch
 from .. import set_deterministic
 from ..data.batching import make_batcher
 from ..data.hwdb_synth import hwdb_stream
-from ..data.loaders import NpzLines, build_dataset, dataset_iter, eval_iter
+from ..data.loaders import REAL_DATASETS, NpzLines, build_dataset, dataset_iter, eval_iter
 from ..parallel import mesh
 from . import checkpoints as ckpt_lib
 from .config import dump_run_config, labelbook_offset, load_settings
@@ -89,7 +94,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("DTLR port detection pretraining")
     p.add_argument("-c", "--config_file", default=None,
                    help="config file (default: the flagship recipe, RECIPE_DETECTION)")
-    p.add_argument("--dataset_file", default=None, help="HWDB_synth, or pass --lines")
+    p.add_argument("--dataset_file", default=None,
+                   help="HWDB_synth, or a real dataset's name for --eval; or pass --lines")
     p.add_argument("--data_root", default="./data")
     p.add_argument("--lines", default=None, help="npz of pre-rendered lines with boxes")
     p.add_argument("--val_lines", default=None, help="npz of held-out lines (default --lines)")
@@ -149,9 +155,11 @@ def line_sources(args, cfg, train_seed: int):
                           cfg.hwdb_glyphs_per_line)
         return train.charset, iter(train), iter(val)
     if args.dataset_file is not None:
-        build_dataset(args.dataset_file, "train", root=args.data_root)  # raises
+        train_ds = build_dataset(args.dataset_file, "train", root=args.data_root)
+        val_ds = build_dataset(args.dataset_file, "val", root=args.data_root)
+        return train_ds.charset, dataset_iter(train_ds), eval_iter(val_ds)
     if args.lines is None:
-        raise ValueError("pass --lines (an npz of lines with boxes) or --dataset_file HWDB_synth")
+        raise ValueError("pass --lines (an npz of lines with boxes) or --dataset_file")
     train_ds = NpzLines(args.lines)
     if "boxes" not in train_ds.arrays:
         raise ValueError(f"{args.lines} has no character boxes: the detection step needs "
@@ -253,6 +261,10 @@ def run(args) -> dict:
     if args.eval:
         result["evals"] = [evaluate()]
         return result
+    if args.dataset_file in REAL_DATASETS:
+        raise ValueError(f"{args.dataset_file}'s lines have no character boxes, which the "
+                         "detection step needs (JAX's pretrain refuses real datasets): "
+                         "finetune on them with CTC, or read them with --eval")
 
     batches = make_batcher(cfg, train_iter, True, train_seed, space_label, reuse=cfg.reuse,
                            erasing=cfg.truly_random_erasing)

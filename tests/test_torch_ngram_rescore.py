@@ -25,18 +25,22 @@ a 5-gram on 400 lines of artifacts/corpus_words_train.txt.
   ``<ckpt_dir>/ngram_preds/preds_ngram.txt``.
 - ``--sweep_lm 'lm_weight=0.5,0.75'``: one line per point, each point's
   CER JAX's decode's, and ``{"best": ...}`` the first lowest.
-- A JAX ``dataset`` is refused with data/loaders.py's ``NEEDS_PIL`` reason.
+- ``dataset: synthetic`` is refused with data/loaders.py's ``NEEDS_PIL``
+  reason, and a real dataset's line the port does not decode with
+  data/images.py's.
 """
 
 import dataclasses
 import json
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from dtlr_tpu.data.batching import BucketBatcher
 from dtlr_tpu.eval.decode import greedy_labels, labels_to_text
@@ -45,6 +49,7 @@ from dtlr_tpu.ngram.lm_decode import CharNgramLM, rescore_line
 from dtlr_tpu.ops.ctc import blank_synthesis
 from dtlr_tpu.ops.pixels import prep_images as jax_prep_images
 from dtlr_tpu_torch.config import loader as TL
+from dtlr_tpu_torch.data.images import UnsupportedImage
 from dtlr_tpu_torch.ngram import rescore
 from dtlr_tpu_torch.train.init import init_params
 from dtlr_tpu.models.convnext import CONVNEXT_CONFIGS as JAX_CONVNEXT
@@ -202,12 +207,25 @@ def test_sweep_lm_matches_jax(setup, capsys):
     assert out[-1] == {"best": best} and res["best"] == best
 
 
-@pytest.mark.parametrize("dataset,reason", [("synthetic", "renders its lines with PIL"),
-                                            ("IAM", "decodes its line images with PIL")])
-def test_jax_datasets_are_refused(setup, dataset, reason):
+@pytest.mark.parametrize("dataset,error,reason", [
+    ("synthetic", NotImplementedError, "renders its lines with PIL"),
+    ("RIMES", UnsupportedImage, "progressive JPEG")])
+def test_jax_datasets_are_refused(setup, dataset, error, reason):
+    """The renderer's dataset, and a real dataset's line that the port does
+    not decode (a RIMES layout whose line is a progressive JPEG)."""
+    root = setup["tmp"] / "data"
+    labels = root / "RIMES-2011-Lines" / "labels_corr.pkl"
+    labels.parent.mkdir(parents=True, exist_ok=True)
+    with open(labels, "wb") as fh:
+        pickle.dump({"charset": setup["charset"],
+                     "ground_truth": {"test": [{"id": "l0", "text": "a"}]}}, fh)
+    (root / "RIMES-2011-Lines" / "Images").mkdir(exist_ok=True)
+    Image.new("RGB", (40, 16), (200, 200, 200)).save(
+        root / "RIMES-2011-Lines" / "Images" / "l0.jpg", progressive=True)
     yaml = write_yaml(setup["tmp"] / f"{dataset}.yaml", dataset=dataset, mode="test",
-                      params=setup["tmp"] / "tiny.npz")
-    with pytest.raises(NotImplementedError, match=reason):
+                      data_root=root, params=setup["tmp"] / "tiny.npz", batch_size=1,
+                      model_config=setup["tmp"] / "config_cfg.py")
+    with pytest.raises(error, match=reason):
         rescore.main(["--config_path", yaml, "--device", "cpu"])
 
 

@@ -7,7 +7,10 @@ The resize is the one place the JAX package leaves numpy: it upscales
 with its C++ helper (dtlr_tpu/runtime/native.cpp, built with ``-O3
 -march=native``, so each ``a + (b - a) * w`` is one fused multiply-add)
 and downscales with PIL's bilinear filter through uint8. The port
-computes both with torch on the CPU. Both directions are held bitwise:
+upscales with its own native runtime (dtlr_tpu_torch/csrc/native.cpp, the
+fused multiply-adds written as std::fma; its torch version ``_upscale``
+in tests/test_torch_native.py) and downscales with torch on the CPU.
+Both directions are held bitwise:
 0 of the pixels differ (the bound the port was asked for is 1/255 on a
 small share for the downscale and fp32 rounding for the upscale). A
 plain bilinear without the fused multiply-add differs from the helper in
