@@ -14,7 +14,10 @@ Phases, each printing one JSON line with its seconds:
            the detection fixture, against the JAX package's committed ones
            (dtlr_tpu_torch/assets/smoke_data.npz: sha256 of the uint8
            images, labels, validity, valid sizes, boxes), numpy's version
-           on both sides, ms per batch on the host
+           on both sides, ms per batch on the host; and the pretraining
+           recipe's first 4 batches with half the lines rotated by 10
+           degrees (PIL's rotation and bicubic resize, ported) against
+           JAX's (assets/smoke_rotate_data.npz)
   build    one nvcc per CUDA source (dtlr_tpu_torch/csrc/box_attn.cu and
            row_gather.cu), all started together, for sm_90a (ptxas report:
            registers, shared memory, spills; each attention block's dynamic
@@ -24,10 +27,12 @@ Phases, each printing one JSON line with its seconds:
   kernels  the instantiations of the box-prior attention kernel against
            their plain PyTorch version on the card, at the decoder's shapes,
            in fp32 and bf16, on contiguous heads and on strided views built
-           as the decoder builds them, the detection step's shapes (1028
-           queries; the masked self-attention at Q = S = 1028 with the CDN
-           group mask, whose matching rows find two key tiles blocked
-           whole, against SDPA with the boolean mask), V rows that ramp over
+           as the decoder builds them (the box prior over 4 levels at
+           S = 2720 and 3570, and over 5 at S = 2728), the detection
+           step's shapes (1028 queries; the masked self-attention at
+           Q = S = 1028 with the CDN group mask, whose matching rows find
+           two key tiles blocked whole, against SDPA with the boolean
+           mask), V rows that ramp over
            the key index at S = 3570 in fp32 (the kernel's key order in P.V;
            the row also shows how far swapping each key pair would move the
            plain version), a fully masked row (uniform and
@@ -76,7 +81,16 @@ Phases, each printing one JSON line with its seconds:
            (its hashes in the reference), finite losses, ms per step, the
            decode's share of the host's batch time; (d) the sweep's decode
            of the fixture lines' fp32 forward with the native metrics and
-           with the plain ones: the same records, ms per point
+           with the plain ones: the same records, ms per point; (e) the
+           other image forms (dtlr_tpu_torch/assets/smoke_forms/, written by
+           tests/test_torch_forms_fixture.py): a Borg layout of eight TIFF
+           lines (LZW with and without the predictor, Deflate, PackBits,
+           uncompressed strips; gray, RGB, RGBA, palette) and progressive
+           JPEG, Adam7 and 16-bit PNG, big-endian and bilevel TIFF files,
+           each decoded native and plain to PIL's hash (ms per line per
+           form), and python -m dtlr_tpu_torch.eval.evaluate --dataset borg
+           in fp32 and bf16 against the JAX package's strings (CER 0.01 /
+           0.02, 6 + 6 launches a forward)
   train    CTC finetuning with the recipe's trainer (dtlr_tpu_torch.train.engine,
            full-model optimizer) from the flagship checkpoint on the eight
            lines: the first step in float32 and in bfloat16 against the JAX
@@ -222,6 +236,34 @@ Phases, each printing one JSON line with its seconds:
            finite losses, ms, peak memory, launches as counted; the step's
            weights the recipe's fresh init, Swin's backbone deform_weights'
            (a fresh Swin overflows its gradient on zero padding, JAX alike)
+  arch     the architecture settings the JAX package takes beyond the
+           recipes' (configs/Latin_TPU.py at full width with ARCH_OPTIONS:
+           five feature levels, S = 2728 keys at 128x1024, the decoder's
+           cross-attention first, the y temperature 10000; deform_weights'
+           seeded stream): (a) the eight fixture lines read in fp32, held
+           against the JAX package's reading of the same weights
+           (assets/smoke_arch_ref.npz, tests/test_torch_arch_fixture.py):
+           its own selection's swaps only between near-tied scores (every
+           line has some with these weights), then with JAX's selection
+           forced, per query and by its strings on every line as the
+           backbones phase holds its own; and in bf16 (held as the
+           deform phase holds its bf16 reading: the strings against JAX's
+           fp32 ones within twice JAX's own bf16-to-fp32 spread, and
+           beside them against JAX's bf16 strings); 6 mha_box launches
+           over the 5 levels and 6 mha a forward, each kernel on a call
+           captured from the forward against its plain version; the model
+           at dropout 0.1 read in eval mode bit for bit the rate-0 reading;
+           (b) the train-mode forward at dropout 1.0 (no denoising) held
+           against JAX's as the fp32 read; three CTC steps of the model
+           and three detection steps of configs/Latin.py (deformable
+           encoder and cross-attention, CDN, B=8) at dropout 0.1: finite losses, ms per step, peak
+           memory, every site's kept share within 5 sigma of 0.9 and what
+           it keeps scaled by 1/0.9 exactly, the launches as counted, mha,
+           mha_box and mha_masked on captured calls against their plain
+           versions; (e) evaluate_ctc of the stepped model writes its
+           snapshot (snapshots/snapshot_epoch0000.png), and save_snapshot
+           on committed arrays gives the JAX package's pixels
+           (assets/smoke_snapshot.npz, tests/test_torch_visualizer.py)
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel (the attention
 in bf16 and, as ``*_fp32``, in fp32, at each dtype's path), the card's name
@@ -277,7 +319,9 @@ B, M, Q, D = 8, 8, 900, 32
 DN_NUMBER, MAX_TARGETS = 100, 64
 Q_DETECT = Q + 2 * MAX_TARGETS
 LEVELS = {2720: ((16, 128), (8, 64), (4, 32), (2, 16)),
-          3570: ((16, 168), (8, 84), (4, 42), (2, 21))}
+          3570: ((16, 168), (8, 84), (4, 42), (2, 21)),
+          # the arch phase's five levels at 128x1024
+          2728: ((16, 128), (8, 64), (4, 32), (2, 16), (1, 8))}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # gradients through the kernel path recompute through the plain version:
 # only the order of the prior's index-add backward (atomics) differs
@@ -506,7 +550,7 @@ def attention_inputs(S, dtype, prior, gen, strided=False, nq=Q):
     key_bias = torch.zeros(B, S, device=dev).masked_fill(pad, -1e9)
     box = None
     if prior:
-        ref = 0.05 + 0.85 * torch.rand(B, nq, 4, 4, generator=gen, device=dev)
+        ref = 0.05 + 0.85 * torch.rand(B, nq, len(LEVELS[S]), 4, generator=gen, device=dev)
         gamma = torch.exp(0.3 * torch.randn(M, generator=gen, device=dev))
         box = make_box_prior(ref, LEVELS[S], gamma)
     return qh, kh, vh, key_bias, box
@@ -601,7 +645,8 @@ def phase_kernels(card):
                for dt in (torch.float32, torch.bfloat16)]
     configs += [("mha", S, Q, dt, False) for S in (900, 2720, 3570)
                 for dt in (torch.float32, torch.bfloat16)]
-    configs += [(name, S, Q, dt, True) for name, S in (("mha_box", 2720), ("mha", 900))
+    configs += [(name, S, Q, dt, True) for name, S in (("mha_box", 2720), ("mha", 900),
+                                                       ("mha_box", 2728))
                 for dt in (torch.float32, torch.bfloat16)]
     configs += [("mha_box", 2720, Q_DETECT, torch.bfloat16, True)]
     configs += [("mha_masked", Q_DETECT, Q_DETECT, dt, True)
@@ -1852,6 +1897,31 @@ DATASETS_ROOT = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_datasets")
 DATASETS_REF = os.path.join(DATASETS_ROOT, "smoke_datasets_ref.json")
 BACKBONES_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_backbones_ref.npz")
 BACKBONES_CONFIG = os.path.join(CONFIGS, "Latin_TPU.py")
+#: the datasets phase's other image forms: a Borg layout of TIFF lines and
+#: progressive JPEG, Adam7 and 16-bit PNG, big-endian and bilevel TIFF
+#: files, with PIL's pixel hashes and the JAX package's Borg strings,
+#: written by tests/test_torch_forms_fixture.py
+FORMS_ROOT = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_forms")
+FORMS_REF = os.path.join(FORMS_ROOT, "smoke_forms_ref.json")
+#: the arch phase: configs/Latin_TPU.py with the four architecture settings
+#: changed (five feature levels, the decoder's cross-attention first, the
+#: sine encodings' y temperature 10000), deform_weights' seeded stream;
+#: the JAX package's fp32 readings of the fixture lines (eval, and train
+#: mode at dropout 1.0), written by tests/test_torch_arch_fixture.py
+ARCH_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_arch_ref.npz")
+ARCH_OPTIONS = ["num_feature_levels=5", "decoder_module_seq=['ca','sa','ffn']",
+                "pe_temperatureH=10000", "pe_temperatureW=20"]
+#: the train-mode dropout of the arch phase's steps, and the 5-sigma bound
+#: on each site's kept share
+ARCH_DROPOUT, ARCH_STEPS = 0.1, 3
+#: the data phase's rotated batches: the pretraining recipe's batcher over
+#: the detection fixture with half the lines rotated by 10 degrees, and
+#: JAX's first batches of it (tests/test_torch_rotate_fixture.py)
+ROTATE_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_rotate_data.npz")
+ROTATE_P, ROTATE_ANGLE = 0.5, 10.0
+#: the snapshot: JAX's save_snapshot of committed arrays
+#: (tests/test_torch_visualizer.py)
+SNAPSHOT_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_snapshot.npz")
 #: the backbones held against JAX's reading, and the reference's own
 #: large ones (dtlr_tpu/models/convnext.py:1-2), read and stepped only
 BACKBONES_HELD = ("swin_T_224_1k", "convnext_tiny")
@@ -1865,6 +1935,17 @@ def backbone_config(backbone, compute_dtype="float32"):
     from dtlr_tpu_torch.train.config import load_settings
 
     _, cfg, _, _ = load_settings(BACKBONES_CONFIG, [f"backbone={backbone}"], "pretrain")
+    return dataclasses.replace(cfg, compute_dtype=compute_dtype)
+
+
+def arch_config(compute_dtype="float32", dropout=0.0):
+    """configs/Latin_TPU.py's model with ``ARCH_OPTIONS`` (five levels, the
+    cross-attention first, the y temperature 10000) and ``dropout``, at
+    ``compute_dtype``."""
+    from dtlr_tpu_torch.train.config import load_settings
+
+    _, cfg, _, _ = load_settings(BACKBONES_CONFIG, [*ARCH_OPTIONS, f"dropout={dropout}"],
+                                 "pretrain")
     return dataclasses.replace(cfg, compute_dtype=compute_dtype)
 
 
@@ -2224,6 +2305,19 @@ def recipe_batcher(recipe):
                         reuse=cfg.reuse, erasing=cfg.truly_random_erasing)
 
 
+def rotate_batcher_kwargs(charset):
+    """The pretraining recipe's batcher settings (make_batcher's, reuse
+    pool included) with ROTATE_P of the lines rotated by ROTATE_ANGLE."""
+    from dtlr_tpu_torch.train.config import RECIPE_DETECTION as cfg
+
+    return dict(batch_size=cfg.batch_size, scales=list(cfg.data_aug_scales),
+                max_size=cfg.data_aug_max_size, max_targets=cfg.max_targets,
+                w_max=cfg.image_w_max, h_quant=cfg.h_quant, h_max=cfg.image_h_max, train=True,
+                space_label=charset.index(" "), seed=DATA_SEED,
+                transfer_uint8=cfg.transfer_uint8, reuse=cfg.reuse, rotate_p=ROTATE_P,
+                rotate_angle=ROTATE_ANGLE)
+
+
 def phase_data():
     """The recipes' first batches made on this host against JAX's
     committed ones (see the module docstring); the image hashes per recipe
@@ -2249,6 +2343,26 @@ def phase_data():
             "shapes": [list(b.images.shape) for b in batches], "dtype": str(batches[0].images.dtype),
             "ms_per_batch": ms, "lines_per_s": len(batches[0].texts) / (np.median(ms) / 1e3)}
         hashes[recipe] = got
+    # the pretraining recipe with the rotation on, against ROTATE_REF
+    from dtlr_tpu_torch.data.batching import BucketBatcher
+    from dtlr_tpu_torch.data.loaders import NpzLines, dataset_iter
+
+    ds = NpzLines(DETECT_LINES)
+    batcher = BucketBatcher(dataset_iter(ds), **rotate_batcher_kwargs(ds.charset))
+    batches, ms = [], []
+    for _ in range(DATA_BATCHES):
+        t1 = time.perf_counter()
+        batches.append(batcher._make_batch())
+        ms.append((time.perf_counter() - t1) * 1e3)
+    with np.load(ROTATE_REF) as rot:
+        record["recipes"]["pretrain_rotate"] = {
+            "rotate_p": ROTATE_P, "rotate_angle": ROTATE_ANGLE,
+            "images_equal": [image_sha256(b.images) == str(w)
+                             for b, w in zip(batches, rot["images_sha256"])],
+            "fields_equal": {f: bool(np.array_equal(np.stack([getattr(b, f) for b in batches]),
+                                                    rot[f])) for f in DATA_FIELDS},
+            "shapes": [list(b.images.shape) for b in batches], "ms_per_batch": ms,
+            "lines_per_s": len(batches[0].texts) / (np.median(ms) / 1e3)}
     record["ok"] = all(all(r["images_equal"]) and all(r["fields_equal"].values())
                        for r in record["recipes"].values())
     record["seconds"] = time.perf_counter() - t0
@@ -2459,8 +2573,8 @@ def datasets_host(ref, native_build):
     return rec
 
 
-def datasets_evaluate(card, ref):
-    """(b): the evaluate entry point on both layouts' test split in fp32
+def datasets_evaluate(card, ref, names=("RIMES", "HWDB"), root=DATASETS_ROOT):
+    """(b): the evaluate entry point on each layout's test split in fp32
     and bf16 against JAX's strings; launches per forward."""
     import tempfile
 
@@ -2469,14 +2583,14 @@ def datasets_evaluate(card, ref):
     from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
 
     records, launches = [], {}
-    for name in ("RIMES", "HWDB"):
+    for name in names:
         want = ref["evaluate"][name]
         for dt in ("float32", "bfloat16"):
             t0 = time.perf_counter()
             reset_launches()
             with tempfile.TemporaryDirectory() as out_dir:
                 res = evaluate.main(["--params", PARAMS, "--config", FLAGSHIP_CONFIG,
-                                     "--dataset", name, "--data_root", DATASETS_ROOT,
+                                     "--dataset", name, "--data_root", root,
                                      "--mode", "test", "--compute_dtype", dt,
                                      "--out_dir", out_dir])
             torch.cuda.synchronize()
@@ -2597,16 +2711,56 @@ def datasets_sweep_decode(card):
     return rec, got
 
 
+def forms_decode():
+    """(e): every file of FORMS_ROOT decoded to PIL's hash, through the
+    native decoders and the numpy versions; ms per line per form."""
+    from dtlr_tpu_torch.data import images
+
+    with open(FORMS_REF) as fh:
+        ref = json.load(fh)
+    bad, decode = [], {}
+    for rel, want in ref["pixels_sha256"].items():
+        with open(os.path.join(FORMS_ROOT, rel), "rb") as fh:
+            data = fh.read()
+        rgb, nat_ms = timed(images.decode_image, data)
+        slow, plain_ms = timed(images.decode_image, data, False)
+        if image_sha256(rgb) != want:
+            bad.append(rel)
+        if not np.array_equal(slow, rgb):
+            bad.append(f"{rel} (plain)")
+        form = os.path.basename(rel) if rel.startswith("forms/") else "borg_tiff"
+        d = decode.setdefault(form, {"lines": 0, "native_ms": [], "plain_ms": [],
+                                     "shape": list(rgb.shape)})
+        d["lines"] += 1
+        d["native_ms"].append(nat_ms)
+        d["plain_ms"].append(plain_ms)
+    decode = {k: {"lines": v["lines"], "shape": v["shape"],
+                  "native_ms_per_line": stat_ms(v["native_ms"]),
+                  "plain_ms_per_line": stat_ms(v["plain_ms"])} for k, v in decode.items()}
+    rec = {"phase": "datasets", "part": "forms", "files": len(ref["pixels_sha256"]),
+           "pixels_sha256_mismatched": bad, "decode": decode}
+    rec["ok"] = not bad
+    return rec, ref
+
+
 def phase_datasets(card, native_build):
     """The real datasets' loaders (see the module docstring): (a) the host
-    runtime, (b) evaluate, (c) finetune, (d) the sweep's decode."""
+    runtime, (b) evaluate, (c) finetune, (d) the sweep's decode, (e) the
+    other image forms and the Borg layout's evaluate."""
     import tempfile
 
     with open(DATASETS_REF) as fh:
         ref = json.load(fh)
     host = datasets_host(ref, native_build)
     emit(host)
+    t0 = time.perf_counter()
+    forms, forms_ref = forms_decode()
+    forms["seconds"] = time.perf_counter() - t0
+    emit(forms)
     records, launches = datasets_evaluate(card, ref)
+    borg_records, borg_launches = datasets_evaluate(card, forms_ref, ("borg",), FORMS_ROOT)
+    records += [forms, *borg_records]
+    launches.update(borg_launches)
     with tempfile.TemporaryDirectory() as workdir:
         ft, launches["datasets_finetune_bf16"] = datasets_finetune(card, ref, workdir)
     torch.cuda.empty_cache()
@@ -3080,6 +3234,430 @@ def phase_backbones(card):
               for r in records if not r["ok"]]
     if failed:
         raise AssertionError(f"backbones phase checks failed: {failed}")
+    return records, launches
+
+
+@contextlib.contextmanager
+def captured_attention():
+    """Each attention kind's first call through the models'
+    ``MultiHeadAttention`` while the block runs: {kind: its arguments,
+    detached}, for the kernel-against-plain check after the path ran."""
+    from dtlr_tpu_torch.models import layers
+
+    calls, real = {}, layers.flash_mha
+
+    def spy(qh, kh, vh, key_bias, box_prior=None, query_group=None):
+        kind = ("mha_box" if box_prior is not None
+                else "mha_masked" if query_group is not None else "mha")
+        if kind not in calls:
+            box = (None if box_prior is None
+                   else type(box_prior)(*(t.detach() for t in box_prior)))
+            calls[kind] = (qh.detach(), kh.detach(), vh.detach(), key_bias.detach(), box,
+                           query_group)
+        return real(qh, kh, vh, key_bias, box_prior, query_group)
+
+    layers.flash_mha = spy
+    try:
+        yield calls
+    finally:
+        layers.flash_mha = real
+
+
+def captured_against_plain(calls):
+    """The kernel on each captured call's arguments against its plain
+    version (the kernels phase's tolerances), with both times."""
+    from dtlr_tpu_torch.ops.flash_attn import dense_reference, flash_mha
+
+    out = {}
+    for kind, args in calls.items():
+        with torch.no_grad():
+            err = float((flash_mha(*args) - dense_reference(*args)).abs().max())
+        dtype = args[0].dtype
+        out[kind] = {"S": int(args[1].shape[2]), "Q": int(args[0].shape[2]),
+                     "dtype": str(dtype).split(".")[1], "max_abs_err": err, "tol": TOL[dtype],
+                     "ok": math.isfinite(err) and err <= TOL[dtype],
+                     "ms": cuda_ms(lambda: flash_mha(*args), calls=5, runs=3, warmup=1),
+                     "plain_ms": cuda_ms(lambda: dense_reference(*args), calls=5, runs=3,
+                                         warmup=1)}
+    return out
+
+
+@contextlib.contextmanager
+def dropout_sites():
+    """Every dropout call while the block runs: its kept share of the
+    input's nonzero elements (counts on the device), and whether what it
+    kept is scaled by exactly 1 / (1 - rate) (the first call)."""
+    from dtlr_tpu_torch.models.transformer import Dropout
+
+    record = {"counts": [], "scale_exact": None}
+    real = Dropout.__call__
+
+    def spy(self, x):
+        out = real(self, x)
+        nz = x != 0
+        kept = (out != 0) & nz
+        record["counts"].append(torch.stack([kept.sum(), nz.sum()]))
+        if record["scale_exact"] is None:
+            record["scale_exact"] = bool(torch.equal(out[kept], (x / (1.0 - self.rate))[kept]))
+        return out
+
+    Dropout.__call__ = spy
+    try:
+        yield record
+    finally:
+        Dropout.__call__ = real
+
+
+def kept_shares(record, rate):
+    """The sites' kept shares and their distance from 1 - rate in standard
+    errors of a Bernoulli(1 - rate) share."""
+    counts = torch.stack(record["counts"]).cpu().numpy().astype(np.float64)
+    share = counts[:, 0] / counts[:, 1]
+    sigma = np.sqrt(rate * (1 - rate) / counts[:, 1])
+    z = np.abs(share - (1 - rate)) / sigma
+    return {"sites": len(share), "share_min": float(share.min()), "share_max": float(share.max()),
+            "max_sigmas": float(z.max()), "elements": int(counts[:, 1].sum()),
+            "scale_exact": record["scale_exact"], "ok": bool(z.max() <= 5.0)
+            and bool(record["scale_exact"])}
+
+
+def train_mode_reading(model, lines, th, nms, gen):
+    """``read_lines``' reading of one train-mode forward (dropout from
+    ``gen``, no targets) of all the lines."""
+    from dtlr_tpu_torch.data.charset import labels_to_text
+    from dtlr_tpu_torch.eval.decode import greedy_decode, greedy_labels, nms_decode
+    from dtlr_tpu_torch.ops.pixels import prep_images
+
+    vh = torch.from_numpy(np.asarray(lines["valid_hw"], np.int32)).cuda()
+    im = torch.from_numpy(np.ascontiguousarray(lines["images"])).cuda()
+    model.train()
+    with torch.no_grad():
+        o = model(prep_images(im, vh), vh, train=True, dropout=gen)
+    logits, boxes = o["pred_logits"], o["pred_boxes"]
+    charset = lines["charset"]
+    return {"greedy": [labels_to_text(l, charset)
+                       for l in greedy_labels(greedy_decode(logits, boxes))],
+            "nms": [labels_to_text(l, charset) for l in nms_decode(logits, boxes, th, nms)],
+            "pred_boxes": boxes.cpu().numpy(), "max_logit": logits.max(-1).values.cpu().numpy(),
+            "anchors": o["interm_outputs_for_matching_pre"]["pred_boxes"].cpu().numpy(),
+            "interm_max_logit": o["interm_outputs"]["pred_logits"].max(-1).values.cpu().numpy()}
+
+
+@contextlib.contextmanager
+def forced_selection(anchors):
+    """The two-stage top-k made to pick JAX's proposals: each of JAX's
+    selected anchors (N, nq, 4) is found among the forward's own proposal
+    grid (its nearest, ``match_err`` the largest distance), and those
+    indices replace the port's top-k. With this model's seeded weights
+    every line has proposal scores within float noise of each other (75
+    swapped slots over the 8 lines, each between scores 9e-5 apart), so
+    no line's own selection is JAX's slot for slot; forced, every line's
+    is, and each query can be held to JAX's."""
+    from dtlr_tpu_torch.models import transformer
+
+    real_props, real_topk = transformer.gen_encoder_output_proposals, transformer.top_k_stable
+    state = {"match_err": 0.0}
+
+    def proposals(memory, padding_mask, spatial_shapes):
+        out = real_props(memory, padding_mask, spatial_shapes)
+        state["proposals"] = out[1]
+        return out
+
+    def top_k(scores, k):
+        grid = state["proposals"].sigmoid()  # (B, S, 4)
+        want = torch.from_numpy(np.array(anchors[:grid.shape[0]], np.float32)).to(grid.device)
+        dist = (grid[:, None, :, :] - want[:, :, None, :]).abs().amax(-1)  # (B, k, S)
+        best = dist.min(-1)
+        state["match_err"] = max(state["match_err"], float(best.values.max()))
+        return best.indices
+
+    transformer.gen_encoder_output_proposals = proposals
+    transformer.top_k_stable = top_k
+    try:
+        yield state
+    finally:
+        transformer.gen_encoder_output_proposals = real_props
+        transformer.top_k_stable = real_topk
+
+
+def held_to_jax(res, forced, match_err, ref, prefix):
+    """The reading ``res`` against the JAX reading ``prefix`` of ARCH_REF:
+    its own selection's swaps only between scores within SWAP_GAP_TOL;
+    then the reading with JAX's selection forced (``forced_selection``)
+    per query and by its strings on every line (the backbones phase's
+    gates)."""
+    from dtlr_tpu_torch.eval import metrics
+    from dtlr_tpu_torch.eval.evaluate import agreement
+
+    jax_ref = {f"jax_{k}": ref[f"{prefix}_{k}"] for k in
+               ("greedy", "nms", "pred_boxes", "max_logit", "anchors", "interm_max_logit")}
+    own = agreement(res, jax_ref)
+    agree = agreement(forced, jax_ref)
+    cer = {k: metrics.mean_cer(forced[k], [str(x) for x in jax_ref[f"jax_{k}"]])
+           for k in ("greedy", "nms")}
+    ok = (own["max_swap_score_gap"] <= SWAP_GAP_TOL and match_err <= ANCHOR_TOL
+          and agree["lines_compared"] == len(forced["greedy"])
+          and agree["max_pred_boxes_err"] <= BOX_TOL and agree["max_logit_err"] <= MAX_LOGIT_TOL
+          and max(cer.values()) <= CER_VS_JAX)
+    return {"own_selection": own, "jax_selection_forced": agree, "anchor_match_err": match_err,
+            "cer_vs_jax_forced": cer, "box_tol": BOX_TOL, "logit_tol": MAX_LOGIT_TOL,
+            "swap_gap_tol": SWAP_GAP_TOL, "cer_tol": CER_VS_JAX, "ok": ok}
+
+
+def arch_reads(card, lines, ref, tree):
+    """(a): the model read in fp32 (held to JAX's eval reading) and in
+    bf16 (strings within CER_VS_JAX_BF16 of JAX's bf16 ones), 6 mha_box
+    launches over S = 2728 keys of 5 levels and 6 mha a forward, each
+    kernel on a captured call against its plain version; then the model at
+    dropout ARCH_DROPOUT read in eval mode, bit for bit the rate-0 fp32
+    reading."""
+    from dtlr_tpu_torch.eval import metrics
+    from dtlr_tpu_torch.eval.evaluate import forward_lines, model_from_tree, read_lines
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+
+    th, nms = (float(x) for x in lines["nms_point"])
+    records, launches, fp32 = [], {}, None
+    for dt in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg = arch_config(dt)
+        model = model_from_tree(tree, cfg, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with captured_attention() as calls:
+            reset_launches()
+            res = read_lines(model, lines, th, nms, batch_size=len(lines["images"]))
+            torch.cuda.synchronize()
+            got = dict(flash_mha.launches)
+        peak = torch.cuda.max_memory_allocated()
+        kernels = captured_against_plain(calls)
+        n_dec = cfg.dec_layers
+        rec = {"phase": "arch", "part": "read", "compute_dtype": dt,
+               "settings": {"num_feature_levels": cfg.num_feature_levels,
+                            "decoder_module_seq": list(cfg.decoder_module_seq),
+                            "pe_temperatureH": cfg.pe_temperature_h,
+                            "pe_temperatureW": cfg.pe_temperature_w},
+               "launches_per_forward": got, "kernels_vs_plain": kernels}
+        ok = (got == {"mha_box": n_dec, "mha": n_dec, "mha_masked": 0}
+              and kernels["mha_box"]["S"] == sum(h * w for h, w in LEVELS[2728])
+              and all(k["ok"] for k in kernels.values())
+              and all(np.isfinite(res[k]).all() for k in ("pred_boxes", "max_logit")))
+        if dt == "float32":
+            fp32 = res
+            with forced_selection(ref["eval_anchors"]) as forced:
+                res_forced = read_lines(model, lines, th, nms, batch_size=len(lines["images"]))
+            rec["vs_jax"] = held_to_jax(res, res_forced, forced["match_err"], ref, "eval")
+            ok = ok and rec["vs_jax"]["ok"]
+        else:
+            # as the deform phase holds its bf16 reading: the strings against
+            # JAX's fp32 ones within twice JAX's own bf16-to-fp32 spread
+            # (at least CER_VS_JAX_BF16); beside them, against JAX's bf16
+            jax32 = {k: [str(x) for x in ref[f"eval_{k}"]] for k in ("greedy", "nms")}
+            spread = {k: metrics.mean_cer([str(x) for x in ref[f"bf16_{k}"]], jax32[k])
+                      for k in jax32}
+            tol = {k: max(CER_VS_JAX_BF16, 2 * spread[k]) for k in spread}
+            cer = {k: metrics.mean_cer(res[k], jax32[k]) for k in jax32}
+            rec.update(cer_vs_jax_fp32=cer, jax_bf16_vs_fp32_cer=spread, cer_tol=tol,
+                       cer_vs_jax_bf16={k: metrics.mean_cer(res[k], [str(x) for x in
+                                                                    ref[f"bf16_{k}"]])
+                                        for k in jax32})
+            ok = ok and all(cer[k] <= tol[k] for k in tol)
+        fwd_ms = cuda_ms(lambda: forward_lines(model, lines["images"], lines["valid_hw"]),
+                         calls=1, runs=3, warmup=1)
+        rec.update(ok=ok, forward_ms_per_batch=fwd_ms, batch=len(lines["images"]),
+                   lines_per_s=len(lines["images"]) / (fwd_ms / 1e3), peak_memory_bytes=peak,
+                   seconds=time.perf_counter() - t0, card=card)
+        launches[f"arch_read_{'fp32' if dt == 'float32' else 'bf16'}_forward"] = got
+        emit(rec)
+        records.append(rec)
+        del model
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = model_from_tree(tree, arch_config("float32", ARCH_DROPOUT), "cuda")
+    res = read_lines(model, lines, th, nms, batch_size=len(lines["images"]))
+    same = all(np.array_equal(res[k], fp32[k]) for k in res)
+    rec = {"phase": "arch", "part": "eval_at_dropout", "dropout": ARCH_DROPOUT,
+           "equal_to_rate_0": same, "ok": same, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    records.append(rec)
+    del model
+    torch.cuda.empty_cache()
+    return records, launches
+
+
+def arch_dropout(card, lines, ref, tree, workdir):
+    """(b): the train-mode forward at rate 1.0 held to JAX's; three CTC
+    steps of the model and three detection steps of configs/Latin.py
+    (deformable encoder and cross-attention, CDN, B=8) at ARCH_DROPOUT:
+    finite losses, ms per step, peak memory, each site's kept share, the
+    kernels on captured calls against their plain versions. Returns the
+    records, the launches and the CTC trainer (for the snapshot)."""
+    from dtlr_tpu_torch.eval.evaluate import model_from_tree
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+    from dtlr_tpu_torch.train.config import RECIPE, load_settings
+    from dtlr_tpu_torch.train.engine import Trainer
+
+    th, nms = (float(x) for x in lines["nms_point"])
+    records, launches = [], {}
+    t0 = time.perf_counter()
+    model = model_from_tree(tree, arch_config("float32", 1.0), "cuda")
+    reset_launches()
+    res = train_mode_reading(model, lines, th, nms, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    got = dict(flash_mha.launches)
+    launches["arch_train_mode_rate_1_fp32_forward"] = got
+    with forced_selection(ref["train_anchors"]) as forced:
+        res_forced = train_mode_reading(model, lines, th, nms,
+                                        torch.Generator("cuda").manual_seed(0))
+    rec = {"phase": "arch", "part": "train_mode_rate_1", "launches_per_forward": got,
+           "vs_jax": held_to_jax(res, res_forced, forced["match_err"], ref, "train"),
+           "seconds": time.perf_counter() - t0}
+    rec["ok"] = rec["vs_jax"]["ok"] and got == {"mha_box": 6, "mha": 6, "mha_masked": 0}
+    emit(rec)
+    records.append(rec)
+    del model
+    torch.cuda.empty_cache()
+
+    runs = []
+    # the flagship's CTC steps with the arch settings, the recipe's bf16
+    batcher = recipe_batcher("finetune")
+    ctc_batch = batcher._make_batch()
+    ctc = Trainer(RECIPE, arch_config("bfloat16", ARCH_DROPOUT), os.path.join(workdir, "ctc"),
+                  device="cuda", charset=list(lines["charset"]))
+    ctc.build(tree)
+    runs.append(("arch_ctc_dropout_bf16_3_steps", ctc, ctc_batch,
+                 {"mha_box": 6, "mha": 6, "mha_masked": 0}))
+    # configs/Latin.py's detection steps, CDN on, B=8
+    train_cfg, model_cfg, _, _ = load_settings(
+        DEFORM_CONFIG, [*DEFORM_DATA_OPTIONS, f"dropout={ARCH_DROPOUT}"], "pretrain")
+    batcher = recipe_batcher("pretrain")
+    det_batch = batcher._make_batch()
+    with np.load(DETECT_LINES) as z:
+        detect_classes = len(z["charset"])
+    det = Trainer(train_cfg, model_cfg, os.path.join(workdir, "detect"), device="cuda",
+                  mode="detection")
+    det.build(deform_weights(model_cfg, detect_classes))
+    runs.append(("latin_detect_dropout_bf16_3_steps", det, det_batch,
+                 {"mha_box": 0, "mha": 0, "mha_masked": 6}))
+    for name, trainer, batch, per_step in runs:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        reset_launches()
+        with captured_attention() as calls, dropout_sites() as sites:
+            for _ in range(ARCH_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                m = trainer.step(batch)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t1) * 1e3)
+        got = dict(flash_mha.launches)
+        launches[name] = got
+        kernels = captured_against_plain(calls)
+        shares = kept_shares(sites, ARCH_DROPOUT)
+        cfg = trainer.model_cfg
+        n_sites = (3 * cfg.enc_layers if cfg.encoder_type == "deformable" else 0) \
+            + 4 * cfg.dec_layers
+        rec = {"phase": "arch", "part": "dropout_steps", "run": name, "dropout": ARCH_DROPOUT,
+               "compute_dtype": cfg.compute_dtype, "encoder": cfg.encoder_type,
+               "decoder_ca": cfg.decoder_ca, "batch": int(len(batch.texts)),
+               "ms_per_step": ms, "losses": losses,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "launches": got, "kernels_vs_plain": kernels, "kept": shares,
+               "sites_per_step": shares["sites"] // ARCH_STEPS,
+               "seconds": time.perf_counter() - t0, "card": card}
+        rec["ok"] = (all(math.isfinite(x) for x in losses)
+                     and got == {k: v * ARCH_STEPS for k, v in per_step.items()}
+                     and all(k["ok"] for k in kernels.values()) and shares["ok"]
+                     and shares["sites"] == n_sites * ARCH_STEPS)
+        emit(rec)
+        records.append(rec)
+    del det
+    torch.cuda.empty_cache()
+    return records, launches, ctc
+
+
+def arch_snapshot(card, lines, ctc):
+    """(e): evaluate_ctc of the stepped CTC model on the fixture lines
+    writes its snapshot; save_snapshot on SNAPSHOT_REF's arrays gives the
+    JAX package's pixels."""
+    import tempfile
+
+    from dtlr_tpu_torch.data import images
+    from dtlr_tpu_torch.data.batching import make_batcher
+    from dtlr_tpu_torch.data.charset import load_default_charset
+    from dtlr_tpu_torch.data.loaders import NpzLines, eval_iter
+    from dtlr_tpu_torch.ops.flash_attn import flash_mha, reset_launches
+    from dtlr_tpu_torch.train.config import RECIPE
+    from dtlr_tpu_torch.utils import visualizer
+
+    t0 = time.perf_counter()
+    ds = NpzLines(LINES)
+    batches = list(make_batcher(RECIPE, eval_iter(ds), False, 0))
+    reset_launches()
+    stats = ctc.evaluate_ctc(iter(batches), list(lines["charset"]), snapshot=True)
+    torch.cuda.synchronize()
+    got = dict(flash_mha.launches)
+    path = os.path.join(ctc.output_dir, "snapshots", "snapshot_epoch0000.png")
+    written = os.path.exists(path)
+    with open(path, "rb") as fh:
+        snap = images.decode_image(fh.read()) if written else None
+    with np.load(SNAPSHOT_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    image = np.load(LINES)["images"][0]
+    want = image.reshape(-1, 3).copy()
+    want[ref["changed"]] = ref["values"]
+    with tempfile.TemporaryDirectory() as out_dir:
+        t1 = time.perf_counter()
+        mine = visualizer.save_snapshot(out_dir, 3, image, ref["pred_boxes"], ref["pred_labels"],
+                                        load_default_charset(), valid_hw=ref["valid_hw"],
+                                        gt_boxes=ref["gt_boxes"])
+        save_ms = (time.perf_counter() - t1) * 1e3
+        with open(mine, "rb") as fh:
+            pixels_equal = bool(np.array_equal(images.decode_image(fh.read()),
+                                               want.reshape(image.shape)))
+    rec = {"phase": "arch", "part": "snapshot", "evaluate": {"cer": stats["cer"], "n": stats["n"]},
+           "launches": got, "snapshot_written": written,
+           "snapshot_shape": list(snap.shape) if written else None,
+           "snapshot_drawn": bool(written and snap.shape == batches[0].images[0].shape
+                                  and (snap != batches[0].images[0]).any()),
+           "committed_arrays_equal_jax_pixels": pixels_equal, "save_snapshot_ms": save_ms,
+           "boxes_drawn": int(len(ref["pred_boxes"]) + len(ref["gt_boxes"])),
+           "seconds": time.perf_counter() - t0, "card": card}
+    rec["ok"] = written and rec["snapshot_drawn"] and pixels_equal and stats["n"] == len(ds)
+    emit(rec)
+    return rec, got
+
+
+def phase_arch(card):
+    """The architecture settings, dropout and the snapshot (see the module
+    docstring)."""
+    import tempfile
+
+    from dtlr_tpu_torch.eval.evaluate import load_lines
+
+    lines = load_lines(LINES)
+    with np.load(ARCH_REF) as z:
+        ref = {k: z[k] for k in z.files}
+    t0 = time.perf_counter()
+    tree = deform_weights(arch_config(), len(lines["charset"]))
+    if tree_sha256(tree) != str(ref["weights_sha256"]):
+        raise AssertionError("arch: the seeded weights are not those the reference was read with")
+    draw_s = time.perf_counter() - t0
+    records, launches = arch_reads(card, lines, ref, tree)
+    with tempfile.TemporaryDirectory() as workdir:
+        recs, more, ctc = arch_dropout(card, lines, ref, tree, workdir)
+        records += recs
+        launches.update(more)
+        rec, launches["arch_evaluate_snapshot_bf16"] = arch_snapshot(card, lines, ctc)
+        records.append(rec)
+        del ctc
+    torch.cuda.empty_cache()
+    records[0]["weights_draw_s"] = draw_s
+    failed = [r.get("run", r["part"] + " " + r.get("compute_dtype", "")) for r in records
+              if not r["ok"]]
+    if failed:
+        raise AssertionError(f"arch phase checks failed: {failed}")
     return records, launches
 
 
@@ -3597,6 +4175,11 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    arch_recs, arch_launches = phase_arch(card)
+    emit({"phase": "arch", "parts": [r.get("run", r["part"]) for r in arch_recs],
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
           "seconds": time.perf_counter() - t0})
@@ -3642,7 +4225,8 @@ def main() -> int:
                           **{k: v for k, v in datasets_launches.items()
                              if not k.endswith("_float32") and not k.endswith("_fp32")},
                           **{k: v for k, v in backbone_launches.items()
-                             if not k.endswith("_fp32")}},
+                             if not k.endswith("_fp32")},
+                          **{k: v for k, v in arch_launches.items() if "fp32" not in k}},
              "float32": {"read_fp32_forward": launches["float32"],
                          "sweep_fp32_90_points": sweep_launches["float32"],
                          "ctc_train_fp32_first_step": train_fp32,
@@ -3653,7 +4237,8 @@ def main() -> int:
                          **{k: v for k, v in ngram_launches.items() if k != "ngram_bf16"},
                          **{k: v for k, v in datasets_launches.items()
                             if k.endswith("_float32") or k.endswith("_fp32")},
-                         **{k: v for k, v in backbone_launches.items() if k.endswith("_fp32")}}}
+                         **{k: v for k, v in backbone_launches.items() if k.endswith("_fp32")},
+                         **{k: v for k, v in arch_launches.items() if "fp32" in k}}}
     by_path = {name + suffix: {path: counts[name] for path, counts in paths[dt].items()}
                for name in flash_attn.KERNELS
                for suffix, dt in (("", "bfloat16"), ("_fp32", "float32"))}

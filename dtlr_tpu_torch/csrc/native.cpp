@@ -8,9 +8,10 @@
 //   - normalize_into_f32: ImageNet normalization into a padded batch row
 //     (data/batching.py)
 //   - png_unfilter_u8: undo the PNG row filters (data/images.py)
-//   - jpeg_decode_baseline: a baseline JPEG's entropy-coded scans through
-//     the colour conversion, as libjpeg-turbo decodes them by default
-//     (data/images.py parses the headers and tables)
+//   - jpeg_decode_huffman: a sequential or progressive JPEG's entropy-coded
+//     scans through the colour conversion, as libjpeg-turbo decodes them
+//     by default (data/images.py parses the headers and tables)
+//   - tiff_packbits_u8, tiff_lzw_u8: expand a TIFF strip (data/images.py)
 //
 // Built with -ffp-contract=off: the multiply-adds that the JAX package's
 // build (-march=native) contracts into fused ones are written here as
@@ -168,6 +169,74 @@ void decode_block(BitReader& br, const Huffman& dc, const Huffman& ac, int& last
             if (r != 15) break;
             k += 15;
         }
+    }
+}
+
+// One block of a progressive scan (jdphuff.c): DC first or refinement, AC
+// first or refinement with the end-of-band run in eobrun.
+void decode_progressive(BitReader& br, const Huffman& dc, const Huffman& ac, int ss, int se,
+                        int ah, int al, int& last_dc, int& eobrun, int32_t* block) {
+    if (ss == 0) {
+        if (ah == 0) {
+            const int s = br.decode(dc);
+            last_dc += s ? extend(br.bits(s), s) : 0;
+            block[0] = (int32_t)((uint32_t)last_dc << al);
+        } else if (br.bits(1)) {
+            block[0] |= 1 << al;
+        }
+        return;
+    }
+    if (ah == 0) {
+        if (eobrun > 0) {
+            --eobrun;
+            return;
+        }
+        for (int k = ss; k <= se; ++k) {
+            const int rs = br.decode(ac);
+            const int r = rs >> 4, s = rs & 15;
+            if (s) {
+                k += r;
+                block[kNatural[k]] = (int32_t)((uint32_t)extend(br.bits(s), s) << al);
+            } else if (r == 15) {
+                k += 15;
+            } else {
+                eobrun = (1 << r) + br.bits(r) - 1;
+                break;
+            }
+        }
+        return;
+    }
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int pos) {
+        if (br.bits(1) && (block[pos] & p1) == 0) block[pos] += block[pos] >= 0 ? p1 : m1;
+    };
+    int k = ss;
+    if (eobrun == 0) {
+        for (; k <= se; ++k) {
+            const int rs = br.decode(ac);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                s = br.bits(1) ? p1 : m1;
+            } else if (r != 15) {
+                eobrun = (1 << r) + br.bits(r);
+                break;
+            }
+            while (k <= se) {
+                const int pos = kNatural[k];
+                if (block[pos] != 0) {
+                    correct(pos);
+                } else if (--r < 0) {
+                    break;
+                }
+                ++k;
+            }
+            if (s) block[kNatural[k]] = s;
+        }
+    }
+    if (eobrun > 0) {
+        for (; k <= se; ++k)
+            if (block[kNatural[k]] != 0) correct(kNatural[k]);
+        --eobrun;
     }
 }
 
@@ -419,24 +488,29 @@ int64_t png_unfilter_u8(const uint8_t* raw, int64_t height, int64_t stride, int6
     return -1;
 }
 
-// Decode a baseline JPEG whose headers data/images.py parsed:
+// Decode a Huffman-coded JPEG (sequential or progressive) whose headers
+// data/images.py parsed:
 //   data, size          the file
 //   width, height, ncomp (1 or 3)
 //   sampling            ncomp x (h, v)
 //   quant               ncomp x 64, natural order (each component's table
 //                       as latched at its first scan)
-//   nscans, scans       per scan 16 int64: start, end of its entropy-coded
-//                       segment, restart interval, component count, then
-//                       4 x (component, DC slot, AC slot)
+//   nscans, scans       per scan 20 int64: start, end of its entropy-coded
+//                       segment, restart interval, component count,
+//                       4 x (component, DC slot, AC slot), then Ss, Se,
+//                       Ah, Al
+//   progressive         0 sequential, 1 progressive (every scan's blocks
+//                       through decode_progressive)
 //   tables              per scan 8 x 272 bytes: DC 0-3, AC 0-3 (16
 //                       counts, 256 symbols)
 //   transform           0 gray, 1 YCbCr to RGB (jdcolor.c), 2 RGB kept
 //   out                 height x width x 3
 // Returns 0, or 1 with the reason in err.
-int jpeg_decode_baseline(const uint8_t* data, int64_t size, int64_t width, int64_t height,
-                         int64_t ncomp, const int64_t* sampling, const uint16_t* quant,
-                         int64_t nscans, const int64_t* scans, const uint8_t* tables,
-                         int64_t transform, uint8_t* out, char* err, int64_t errlen) {
+int jpeg_decode_huffman(const uint8_t* data, int64_t size, int64_t width, int64_t height,
+                        int64_t ncomp, const int64_t* sampling, const uint16_t* quant,
+                        int64_t nscans, const int64_t* scans, const uint8_t* tables,
+                        int64_t progressive, int64_t transform, uint8_t* out, char* err,
+                        int64_t errlen) {
     if (ncomp != 1 && ncomp != 3) return fail(err, errlen, "1 or 3 components");
     int64_t hmax = 1, vmax = 1;
     for (int64_t c = 0; c < ncomp; ++c) {
@@ -457,12 +531,14 @@ int jpeg_decode_baseline(const uint8_t* data, int64_t size, int64_t width, int64
     }
     Huffman huff[8];
     for (int64_t s = 0; s < nscans; ++s) {
-        const int64_t* sc = scans + 16 * s;
+        const int64_t* sc = scans + 20 * s;
+        const int ss = (int)sc[16], se = (int)sc[17], ah = (int)sc[18], al = (int)sc[19];
         if (sc[0] < 0 || sc[1] > size || sc[0] > sc[1]) return fail(err, errlen, "scan bounds");
         for (int t = 0; t < 8; ++t) huff[t].build(tables + (s * 8 + t) * 272);
         BitReader br{data, sc[0], sc[1], sc[1]};
         const int64_t ri = sc[2], ns = sc[3];
         int last_dc[3] = {0, 0, 0};
+        int eobrun = 0;
         // a lone component's scan goes block by block over its own
         // samples; an interleaved one MCU by MCU
         const int64_t c0 = sc[4];
@@ -471,13 +547,18 @@ int jpeg_decode_baseline(const uint8_t* data, int64_t size, int64_t width, int64
             if (ri && u && u % ri == 0) {
                 br.restart();
                 last_dc[0] = last_dc[1] = last_dc[2] = 0;
+                eobrun = 0;
             }
             if (br.insufficient) continue;  // the rest of the interval stays zero
             if (ns == 1) {
                 const int64_t per_row = (dw[c0] + 7) / 8;
                 const int64_t by = u / per_row, bx = u % per_row;
-                decode_block(br, huff[sc[5]], huff[4 + sc[6]], last_dc[c0],
-                             coefs[c0].data() + (by * bw[c0] + bx) * 64);
+                int32_t* block = coefs[c0].data() + (by * bw[c0] + bx) * 64;
+                if (progressive)
+                    decode_progressive(br, huff[sc[5]], huff[4 + sc[6]], ss, se, ah, al,
+                                       last_dc[c0], eobrun, block);
+                else
+                    decode_block(br, huff[sc[5]], huff[4 + sc[6]], last_dc[c0], block);
                 continue;
             }
             const int64_t my = u / mcux, mx = u % mcux;
@@ -487,8 +568,13 @@ int jpeg_decode_baseline(const uint8_t* data, int64_t size, int64_t width, int64
                 for (int64_t yy = 0; yy < v; ++yy)
                     for (int64_t xx = 0; xx < h; ++xx) {
                         const int64_t by = my * v + yy, bx = mx * h + xx;
-                        decode_block(br, huff[sc[5 + 3 * k]], huff[4 + sc[6 + 3 * k]], last_dc[c],
-                                     coefs[c].data() + (by * bw[c] + bx) * 64);
+                        int32_t* block = coefs[c].data() + (by * bw[c] + bx) * 64;
+                        if (progressive)
+                            decode_progressive(br, huff[sc[5 + 3 * k]], huff[4 + sc[6 + 3 * k]],
+                                               ss, se, ah, al, last_dc[c], eobrun, block);
+                        else
+                            decode_block(br, huff[sc[5 + 3 * k]], huff[4 + sc[6 + 3 * k]],
+                                         last_dc[c], block);
                     }
             }
         }
@@ -536,6 +622,86 @@ int jpeg_decode_baseline(const uint8_t* data, int64_t size, int64_t width, int64
         }
     }
     return 0;
+}
+
+// TIFF PackBits (TIFF 6.0 section 9) into out, at most cap bytes.
+// Returns the bytes written.
+int64_t tiff_packbits_u8(const uint8_t* src, int64_t n, uint8_t* out, int64_t cap) {
+    int64_t pos = 0, w = 0;
+    while (pos < n && w < cap) {
+        const int h = (int8_t)src[pos++];
+        if (h >= 0) {
+            for (int k = 0; k <= h && pos < n && w < cap; ++k) out[w++] = src[pos++];
+            if (pos > n) break;
+        } else if (h != -128) {
+            if (pos >= n) break;
+            const uint8_t v = src[pos++];
+            for (int k = 0; k < 1 - h && w < cap; ++k) out[w++] = v;
+        }
+    }
+    return w;
+}
+
+// TIFF LZW (TIFF 6.0 section 13): 9- to 12-bit codes, most significant bit
+// first, 256 clears, 257 ends, the width grows one code early. Writes at
+// most cap bytes into out. Returns the bytes written, or -1 on a code
+// beyond the table.
+int64_t tiff_lzw_u8(const uint8_t* src, int64_t n, uint8_t* out, int64_t cap) {
+    // each entry: its prefix code, its last byte, its first byte, its length
+    std::vector<int32_t> prefix(4096), length(4096);
+    std::vector<uint8_t> last(4096), first(4096);
+    for (int i = 0; i < 256; ++i) {
+        prefix[i] = -1;
+        last[i] = first[i] = (uint8_t)i;
+        length[i] = 1;
+    }
+    int width = 9, next = 258, prev = -1;
+    uint64_t buf = 0;
+    int have = 0;
+    int64_t pos = 0, w = 0;
+    std::vector<uint8_t> stack(4096);
+    while (w < cap) {
+        while (have < width && pos < n) {
+            buf = (buf << 8) | src[pos++];
+            have += 8;
+        }
+        if (have < width) break;
+        have -= width;
+        const int code = (int)((buf >> have) & ((1u << width) - 1));
+        if (code == 257) break;
+        if (code == 256) {
+            width = 9;
+            next = 258;
+            prev = -1;
+            continue;
+        }
+        int emit;  // the code whose string goes out
+        if (code < next && code != 256 && code != 257) {
+            emit = code;
+            if (prev >= 0 && next < 4096) {
+                prefix[next] = prev;
+                last[next] = first[code];
+                first[next] = first[prev];
+                length[next] = length[prev] + 1;
+                ++next;
+            }
+        } else if (code == next && prev >= 0 && next < 4096) {
+            prefix[next] = prev;
+            last[next] = first[prev];
+            first[next] = first[prev];
+            length[next] = length[prev] + 1;
+            emit = next++;
+        } else {
+            return -1;
+        }
+        // the string, last byte first, then out in order
+        int len = length[emit], k = len;
+        for (int c = emit; c >= 0; c = prefix[c]) stack[--k] = last[c];
+        for (int i = 0; i < len && w < cap; ++i) out[w++] = stack[i];
+        prev = code;
+        if (next + 1 >= (1 << width) && width < 12) ++width;
+    }
+    return w;
 }
 
 }  // extern "C"

@@ -56,10 +56,11 @@ def prepare_sample(
     h_max: Optional[int] = None,
 ):
     """One line resized and augmented; returns (image, normalized cxcywh
-    boxes, labels). The rotation (``rotate_p`` > 0) needs PIL and is not
-    ported: asking for it raises."""
+    boxes, labels). With ``rotate_p`` > 0 a training line is rotated by
+    ``rotate_angle`` with that probability first (PIL's rotation and
+    bicubic resize, ``transforms.rotate_with_boxes``)."""
     if train and rotate_p > 0 and rng.random() < rotate_p:
-        raise NotImplementedError("rotate_with_boxes needs PIL: keep rotate_p at 0")
+        image, boxes = T.rotate_with_boxes(image, boxes, rotate_angle)
     if train and scales2 is not None and rng.random() < 0.5:
         img, bx, labels = T.scales2_chain(rng, image, boxes, labels, scales2[0], scales2[1],
                                           [scale], max_size)

@@ -192,8 +192,7 @@ class Cipher(_ImageLines):
     """borg and copiale (reference datasets/borg.py, copiale.py):
     ``old_cipher/labels_<Borg|Copiale>.pkl``. A charset of multi-character
     symbol names makes the texts space-separated tokens, else characters
-    (copiale.py:72-79). Images are ``.tif``, which the port does not
-    decode: reading one raises."""
+    (copiale.py:72-79). Images are ``.tif`` (``images.decode_tiff``)."""
 
     def __init__(self, root: str, mode: str, which: str):
         name = {"borg": "labels_Borg.pkl", "copiale": "labels_Copiale.pkl"}[which]

@@ -20,9 +20,18 @@ and the downscale torch ops on CPU tensors, computing the same bytes:
   (libImaging/Resample.c): triangle-filter coefficients scaled by the
   larger of 1 and the reduction factor, as 22-bit fixed point, a
   horizontal then a vertical pass, each rounded and clipped to uint8.
+  ``pil_resize`` takes the bicubic filter (a = -0.5) too.
 
-``rotate_with_boxes`` and ``gaussian_blur`` need PIL and are off the
-recipe (``rotate_p = 0``; nothing calls ``gaussian_blur``): not ported.
+``rotate_with_boxes`` and ``gaussian_blur`` call PIL in the JAX package;
+here they are PIL's arithmetic on uint8 tensors:
+- ``pil_rotate``: ``Image.rotate(angle, expand=True)`` (nearest): PIL's
+  matrix rounded to 15 digits, its expanded size, and its affine
+  nearest-neighbour sampling (libImaging/Geometry.c), in 16.16 fixed
+  point when the corners fit, else in float64 accumulated as PIL does.
+- ``pil_gaussian_blur``: ``ImageFilter.GaussianBlur(radius)``: three
+  passes of an extended box blur (libImaging/BoxBlur.c) along x, then
+  three along y, with PIL's float32 radius arithmetic and its 24-bit
+  fixed-point weights, each pass rounded to uint8.
 """
 
 from __future__ import annotations
@@ -84,13 +93,33 @@ def _upscale(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return _fma32(bot - top, wy, top).numpy()
 
 
-def _pil_coefficients(in_size: int, out_size: int):
-    """PIL's bilinear taps for one axis (Resample.c precompute_coeffs and
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _bicubic(x: float) -> float:
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+#: PIL's filters: (function, support)
+_PIL_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_bicubic, 2.0)}
+
+
+def _pil_coefficients(in_size: int, out_size: int, kind: str = "bilinear"):
+    """PIL's taps for one axis (Resample.c precompute_coeffs and
     normalize_coeffs_8bpc): source index and fixed-point weight per
     output pixel and tap, unused taps weighted 0."""
+    fn, filter_support = _PIL_FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = filterscale
+    support = filter_support * filterscale
     ss = 1.0 / filterscale
     taps = int(math.ceil(support)) * 2 + 1
     index = np.zeros((out_size, taps), np.int64)
@@ -99,24 +128,21 @@ def _pil_coefficients(in_size: int, out_size: int):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         n = min(int(center + support + 0.5), in_size) - xmin
-        w = []
-        for x in range(n):
-            d = abs((x + xmin - center + 0.5) * ss)
-            w.append(1.0 - d if d < 1.0 else 0.0)
+        w = [fn((x + xmin - center + 0.5) * ss) for x in range(n)]
         total = 0.0
         for v in w:
             total += v
         for x, v in enumerate(w):
             if total != 0.0:
                 v /= total
-            weight[xx, x] = int(0.5 + v * (1 << _PIL_PRECISION))
+            weight[xx, x] = int((-0.5 if v < 0 else 0.5) + v * (1 << _PIL_PRECISION))
             index[xx, x] = xmin + x
     return torch.from_numpy(index), torch.from_numpy(weight)
 
 
-def _pil_pass(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
-    """One pass of PIL's 8-bit resampler over int64 pixels (H, W, 3)."""
-    index, weight = _pil_coefficients(x.shape[axis], out_size)
+def _pil_pass(x: torch.Tensor, axis: int, out_size: int, kind: str = "bilinear") -> torch.Tensor:
+    """One pass of PIL's 8-bit resampler over int64 pixels (H, W, C)."""
+    index, weight = _pil_coefficients(x.shape[axis], out_size, kind)
     if axis == 1:
         acc = (x[:, index] * weight[None, :, :, None]).sum(2)
     else:
@@ -124,15 +150,23 @@ def _pil_pass(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     return ((acc + (1 << (_PIL_PRECISION - 1))) >> _PIL_PRECISION).clamp(0, 255)
 
 
+def pil_resize(img: np.ndarray, out_h: int, out_w: int, kind: str = "bicubic") -> np.ndarray:
+    """PIL's ``Image.fromarray(img).resize((out_w, out_h), filter)`` of a
+    uint8 (H, W, C) array: the horizontal pass, then the vertical, each
+    skipped where the size stays."""
+    x = torch.from_numpy(np.array(img, np.int64))
+    if out_w != x.shape[1]:
+        x = _pil_pass(x, 1, out_w, kind)
+    if out_h != x.shape[0]:
+        x = _pil_pass(x, 0, out_h, kind)
+    return x.to(torch.uint8).numpy()
+
+
 def _pil_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """PIL's ``Image.fromarray(uint8).resize((out_w, out_h), BILINEAR)``
     of the image truncated to uint8, back to float32 in [0, 1]."""
-    x = torch.from_numpy((np.clip(img, 0, 1) * 255).astype(np.uint8)).long()
-    if out_w != x.shape[1]:
-        x = _pil_pass(x, 1, out_w)
-    if out_h != x.shape[0]:
-        x = _pil_pass(x, 0, out_h)
-    return x.to(torch.uint8).numpy().astype(np.float32) / 255.0
+    x = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    return pil_resize(x, out_h, out_w, "bilinear").astype(np.float32) / 255.0
 
 
 def _interp_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -295,3 +329,166 @@ def adjust_brightness_contrast(rng, img, brightness=(0.8, 1.2), contrast=(0.8, 1
 def lighting_noise(rng, img):
     """Random channel permutation (reference sltransform.py:38-57)."""
     return img[:, :, rng.permutation(3)]
+
+
+def _pil_rotation(w: int, h: int, angle: float):
+    """PIL's ``rotate(angle, expand=True)`` geometry (Image.rotate): the
+    inverse affine matrix (output pixel -> input), rounded to 15 digits
+    and shifted for the expanded canvas, and the canvas's (nw, nh)."""
+    cx, cy = w / 2, h / 2
+    rad = -math.radians(angle)
+    m = [round(math.cos(rad), 15), round(math.sin(rad), 15), 0.0,
+         round(-math.sin(rad), 15), round(math.cos(rad), 15), 0.0]
+
+    def transform(x, y):
+        a, b, c, d, e, f = m
+        return a * x + b * y + c, d * x + e * y + f
+
+    m[2], m[5] = transform(-cx, -cy)
+    m[2] += cx
+    m[5] += cy
+    xx, yy = zip(*(transform(x, y) for x, y in ((0, 0), (w, 0), (w, h), (0, h))))
+    nw = math.ceil(max(xx)) - math.floor(min(xx))
+    nh = math.ceil(max(yy)) - math.floor(min(yy))
+    m[2], m[5] = transform(-(nw - w) / 2.0, -(nh - h) / 2.0)
+    return m, nw, nh
+
+
+def _affine_sources(m, nw: int, nh: int):
+    """The input column and row that PIL's nearest-neighbour affine
+    (Geometry.c ImagingTransformAffine) reads for every output pixel,
+    (nh, nw) int64 each: 16.16 fixed point (affine_fixed) when the four
+    corners map inside +-32768, else float64 coordinates accumulated by
+    repeated addition, as its loop does, and truncated (-1 below 0)."""
+    def fits(x, y):
+        return (abs(x * m[0] + y * m[1] + m[2]) < 32768.0
+                and abs(x * m[3] + y * m[4] + m[5]) < 32768.0)
+
+    if all(fits(x, y) for x, y in ((0, 0), (nw, nh), (0, nh), (nw, 0))):
+        fix = lambda v: math.floor(v * 65536.0 + 0.5)
+        a0, a1, a3, a4 = fix(m[0]), fix(m[1]), fix(m[3]), fix(m[4])
+        a2 = fix(m[2] + m[0] * 0.5 + m[1] * 0.5)
+        a5 = fix(m[5] + m[3] * 0.5 + m[4] * 0.5)
+        ys = torch.arange(nh, dtype=torch.int64)[:, None]
+        xs = torch.arange(nw, dtype=torch.int64)[None, :]
+        return (a2 + ys * a1 + xs * a0) >> 16, (a5 + ys * a4 + xs * a3) >> 16
+
+    def accumulate(start, row_step, col_step):
+        rows = np.cumsum(np.concatenate([[start], np.full(nh - 1, row_step)]))
+        grid = np.concatenate([rows[:, None], np.full((nh, nw - 1), col_step)], axis=1)
+        v = np.cumsum(grid, axis=1)
+        return torch.from_numpy(np.where(v < 0.0, -1, np.trunc(v)).astype(np.int64))
+
+    xo = m[2] + m[1] * 0.5 + m[0] * 0.5
+    yo = m[5] + m[4] * 0.5 + m[3] * 0.5
+    return accumulate(xo, m[1], m[0]), accumulate(yo, m[4], m[3])
+
+
+def pil_rotate(img: np.ndarray, angle: float) -> np.ndarray:
+    """PIL's ``Image.fromarray(img).rotate(angle, expand=True)`` of a uint8
+    (H, W[, C]) array: nearest sampling, black where no input pixel
+    lands; multiples of 90 degrees as PIL's transposes."""
+    h, w = img.shape[:2]
+    angle = angle % 360.0
+    if angle == 0:
+        return img.copy()
+    if angle == 180:
+        return np.ascontiguousarray(img[::-1, ::-1])
+    if angle in (90, 270):
+        return np.ascontiguousarray(np.rot90(img, 1 if angle == 90 else 3))
+    m, nw, nh = _pil_rotation(w, h, angle)
+    if m[1] == 0 and m[3] == 0:
+        raise NotImplementedError(f"rotate by {angle}: PIL's scaling path")
+    xin, yin = _affine_sources(m, nw, nh)
+    inside = (xin >= 0) & (xin < w) & (yin >= 0) & (yin < h)
+    src = torch.from_numpy(np.array(img))
+    out = src[yin.clamp(0, h - 1), xin.clamp(0, w - 1)]
+    mask = inside.view(nh, nw, *([1] * (src.dim() - 2)))
+    return torch.where(mask, out, torch.zeros((), dtype=src.dtype)).numpy()
+
+
+def rotate_with_boxes(img, boxes, angle: float):
+    """Rotate the image by ``angle`` degrees (expand, then PIL's bicubic
+    resize back to the original size) and each pixel-xyxy box to the
+    axis-aligned hull of its rotated corners (reference
+    sltransform.py:60-169), as dtlr_tpu/data/transforms.py:160-204 does:
+    the image through uint8 (truncated), the boxes in float64, returned as
+    float32."""
+    h, w = img.shape[:2]
+    rot = pil_rotate((np.clip(img, 0, 1) * 255).astype(np.uint8), angle)
+    nh, nw = rot.shape[:2]
+    rad = np.radians(angle)
+    a, b = np.cos(rad), np.sin(rad)
+    cx, cy = w / 2.0, h / 2.0
+    m = np.asarray(
+        [[a, b, (1 - a) * cx - b * cy + (nw / 2.0 - cx)],
+         [-b, a, b * cx + (1 - a) * cy + (nh / 2.0 - cy)]],
+        np.float64,
+    )
+    out_img = np.asarray(pil_resize(rot, h, w, "bicubic"), np.float32) / 255.0
+    if boxes is None or len(boxes) == 0:
+        return out_img, boxes
+    bx = np.asarray(boxes, np.float64)
+    x1, y1, x2, y2 = bx[:, 0], bx[:, 1], bx[:, 2], bx[:, 3]
+    corners = np.stack([np.stack([x1, y1], -1), np.stack([x2, y1], -1),
+                        np.stack([x1, y2], -1), np.stack([x2, y2], -1)], axis=1)
+    ones = np.ones((*corners.shape[:2], 1))
+    rc = np.concatenate([corners, ones], -1) @ m.T  # (N, 4, 2)
+    new = np.concatenate([rc.min(axis=1), rc.max(axis=1)], -1)
+    new /= np.asarray([nw / w, nh / h, nw / w, nh / h])
+    new[:, [0, 2]] = np.clip(new[:, [0, 2]], 0, w)
+    new[:, [1, 3]] = np.clip(new[:, [1, 3]], 0, h)
+    return out_img, new.astype(np.float32)
+
+
+def _box_blur_radius(radius: float, passes: int) -> np.float32:
+    """BoxBlur.c _gaussian_blur_radius: the extended box's radius whose
+    ``passes`` passes have the Gaussian's variance, in C float."""
+    f = np.float32
+    r = f(radius)
+    sigma2 = f(r * r / f(passes))
+    L = f(math.sqrt(12.0 * float(sigma2) + 1.0))
+    l = f(math.floor((float(L) - 1.0) / 2.0))
+    a = f(f(f(2) * l + f(1)) * f(l * f(l + f(1)) - f(3) * sigma2))
+    a = f(a / f(f(6) * f(sigma2 - f(l + f(1)) * f(l + f(1)))))
+    return f(l + a)
+
+
+def _box_blur_pass(x: torch.Tensor, radius: np.float32, axis: int) -> torch.Tensor:
+    """One extended box-blur pass along ``axis`` of int64 pixels
+    (BoxBlur.c ImagingLineBoxBlur*): the 2r + 1 pixels around each at
+    weight ww and the two beyond at fw, edges repeated, 24-bit fixed
+    point rounded to uint8."""
+    r = int(radius)
+    ww = int(np.float32(1 << 24) / np.float32(radius * np.float32(2) + np.float32(1)))
+    fw = ((1 << 24) - (r * 2 + 1) * ww) // 2
+    n = x.shape[axis]
+    idx = torch.arange(n)
+    near = (idx[:, None] + torch.arange(-r, r + 1)[None, :]).clamp(0, n - 1)  # (n, 2r+1)
+    left, right = (idx - r - 1).clamp(0, n - 1), (idx + r + 1).clamp(0, n - 1)
+    xm = x.movedim(axis, 0)
+    acc = xm[near].sum(1)
+    bulk = acc * ww + (xm[left] + xm[right]) * fw
+    return ((bulk + (1 << 23)) >> 24).movedim(0, axis)
+
+
+def pil_gaussian_blur(img: np.ndarray, radius: float, passes: int = 3) -> np.ndarray:
+    """PIL's ``Image.fromarray(img).filter(ImageFilter.GaussianBlur(radius))``
+    of a uint8 (H, W[, C]) array."""
+    if radius == 0:
+        return img.copy()
+    box = _box_blur_radius(radius, passes)
+    x = torch.from_numpy(np.array(img, np.int64))
+    if box != 0:
+        for axis in (1, 0):
+            for _ in range(passes):
+                x = _box_blur_pass(x, box, axis)
+    return x.to(torch.uint8).numpy()
+
+
+def gaussian_blur(rng, img, sigma=(0.1, 2.0)):
+    """A Gaussian blur of radius drawn from ``sigma`` on the image through
+    uint8 (dtlr_tpu/data/transforms.py:264-270)."""
+    s = rng.uniform(*sigma)
+    out = pil_gaussian_blur((np.clip(img, 0, 1) * 255).astype(np.uint8), s)
+    return out.astype(np.float32) / 255.0

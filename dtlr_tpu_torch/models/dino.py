@@ -7,8 +7,9 @@ every combination between them that the JAX modules accept, through
 ``DinoConfig``'s architecture fields, with the ResNets, the Swin
 Transformers or the ConvNeXts as the backbone.
 
-``DINO.forward(images, valid_hw, targets=None, train=False, cdn_noise=None)``
-takes ImageNet-normalized (B, H, W, 3) images, as the JAX module does, and
+``DINO.forward(images, valid_hw, targets=None, train=False, cdn_noise=None,
+dropout=None)`` takes ImageNet-normalized (B, H, W, 3) images, as the JAX
+module does, and
 returns the same dict: pred_logits, pred_boxes, aux_outputs,
 interm_outputs, interm_outputs_for_matching_pre. With ``train``,
 ``cfg.use_dn`` and ``targets`` (labels (B, N), boxes (B, N, 4) cxcywh,
@@ -16,7 +17,10 @@ valid (B, N)) the decoder also runs the contrastive denoising queries
 (models/cdn.py) before the matching ones, and the dict gains their
 outputs (``dn_outputs`` with ``aux_outputs``) and ``dn_meta``, as at
 dtlr_tpu/models/dino.py:245-259,299-312; ``cdn_noise`` is the generator
-of their noise or the draws themselves (``CdnDraws``).
+of their noise or the draws themselves (``CdnDraws``). With ``train`` and
+``cfg.dropout`` > 0 the transformer drops out at JAX's sites, drawing from
+the generator ``dropout`` (JAX's ``rngs={"dropout": ...}``,
+``deterministic=not train``).
 Submodules carry the flax parameter names, so that weights.py maps the
 checkpoint's leaves by name.
 """
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,7 +42,7 @@ from .layers import MLP, Conv, Dense, GroupNorm
 from .position_encoding import sine_position_embedding_hw
 from .resnet import RETURN_INDICES, ResNet
 from .swin import build_swin
-from .transformer import DeformableTransformer
+from .transformer import DECODER_MODULES, DeformableTransformer, Dropout
 
 
 @dataclass(frozen=True)
@@ -85,6 +89,20 @@ class DinoConfig:
     backbone: str = "resnet50"
     enc_n_points: int = 4
     dec_n_points: int = 4
+    #: feature levels: the backbone's three (strides 8, 16, 32), then
+    #: stride-2 3x3 projections, each from the level before
+    #: (dtlr_tpu/models/dino.py:146-166,231-243)
+    num_feature_levels: int = 4
+    #: the order of each decoder layer's sublayers (config key
+    #: ``decoder_module_seq``, dtlr_tpu/models/transformer.py:264-266)
+    decoder_module_seq: Tuple[str, ...] = ("sa", "ca", "ffn")
+    #: the rate of every dropout site in train mode
+    #: (dtlr_tpu/models/transformer.py:148-155,187-262)
+    dropout: float = 0.0
+    #: the sine position encodings' temperatures along y and x (config
+    #: keys ``pe_temperatureH``, ``pe_temperatureW``)
+    pe_temperature_h: float = 20.0
+    pe_temperature_w: float = 20.0
 
     @property
     def dtype(self) -> torch.dtype:
@@ -94,7 +112,6 @@ class DinoConfig:
 
 
 FLAGSHIP = DinoConfig()  # bfloat16, as the recipe computes
-NUM_LEVELS = 4  # feature levels: layers 2-4 of the backbone and one more
 
 
 def build_backbone(cfg: DinoConfig) -> nn.Module:
@@ -150,7 +167,15 @@ class DINO(nn.Module):
         dt = cfg.dtype
         self.backbone_net = build_backbone(cfg)
         chans = self.backbone_net.num_channels
-        for i in range(NUM_LEVELS):
+        if cfg.num_feature_levels < len(chans):
+            # JAX's forward indexes a projection for every backbone level
+            # (dtlr_tpu/models/dino.py:219-220) and raises IndexError
+            raise ValueError(f"num_feature_levels = {cfg.num_feature_levels}: the backbone "
+                             f"gives {len(chans)} levels, each needs a projection")
+        if any(m not in DECODER_MODULES for m in cfg.decoder_module_seq):
+            raise ValueError(f"decoder_module_seq {list(cfg.decoder_module_seq)}: each is "
+                             f"one of {DECODER_MODULES}")
+        for i in range(cfg.num_feature_levels):
             if i < len(chans):
                 conv = Conv(chans[i], C, 1, dtype=dt)
             else:
@@ -162,11 +187,12 @@ class DINO(nn.Module):
         self.transformer = DeformableTransformer(
             d_model=C, n_heads=cfg.nheads, num_encoder_layers=cfg.enc_layers,
             num_decoder_layers=cfg.dec_layers, d_ffn=cfg.dim_feedforward,
-            num_feature_levels=NUM_LEVELS,
+            num_feature_levels=cfg.num_feature_levels,
             num_queries=cfg.num_queries, encoder_win=cfg.encoder_win, dtype=dt,
             encoder_type=cfg.encoder_type, decoder_ca=cfg.decoder_ca,
             dense_box_bias=cfg.dense_box_bias, shared_offsets=cfg.shared_offsets,
-            enc_n_points=cfg.enc_n_points, dec_n_points=cfg.dec_n_points)
+            enc_n_points=cfg.enc_n_points, dec_n_points=cfg.dec_n_points,
+            module_seq=cfg.decoder_module_seq)
         self.class_embed = ClassHead(C, num_classes, dtype=dt)
         self.bbox_embed = BboxHead(C, dt)
         self.enc_out_class_embed = ClassHead(C, num_classes, dtype=dt)
@@ -187,7 +213,7 @@ class DINO(nn.Module):
         feats = self.backbone_net(images.permute(0, 3, 1, 2))
         srcs, masks, poss = [], [], []
         x = None
-        for lvl in range(NUM_LEVELS):
+        for lvl in range(cfg.num_feature_levels):
             x = feats[lvl] if lvl < len(feats) else (feats[-1] if lvl == len(feats) else x)
             x = getattr(self, f"input_proj_{lvl}_norm")(
                 getattr(self, f"input_proj_{lvl}_conv")(x))
@@ -195,12 +221,15 @@ class DINO(nn.Module):
             m = level_pad_mask(valid_hw, h, w, H, W)
             srcs.append(x.permute(0, 2, 3, 1))
             masks.append(m)
-            poss.append(sine_position_embedding_hw(m, num_pos_feats=cfg.hidden_dim // 2))
+            poss.append(sine_position_embedding_hw(
+                m, num_pos_feats=cfg.hidden_dim // 2, temperature_h=cfg.pe_temperature_h,
+                temperature_w=cfg.pe_temperature_w))
         return srcs, masks, poss
 
     def forward(self, images: torch.Tensor, valid_hw: torch.Tensor,
                 targets: Optional[dict] = None, train: bool = False,
-                cdn_noise: Optional[CdnDraws | torch.Generator] = None) -> dict:
+                cdn_noise: Optional[CdnDraws | torch.Generator] = None,
+                dropout: Optional[torch.Generator] = None) -> dict:
         cfg = self.cfg
         srcs, masks, poss = self.levels(images, valid_hw)
         use_cdn = train and cfg.use_dn and targets is not None
@@ -213,7 +242,8 @@ class DINO(nn.Module):
             query_group = cdn_query_groups(cfg.num_queries, meta, images.device)
         hs, references, hs_enc, ref_enc, init_box_proposal = self.transformer(
             srcs, masks, poss, self.enc_out_class_embed, self.enc_out_bbox_embed,
-            self.bbox_embed, dn_refpoint, dn_tgt, query_group)
+            self.bbox_embed, dn_refpoint, dn_tgt, query_group,
+            Dropout(cfg.dropout, dropout) if train and cfg.dropout > 0 else None)
         n_dec = hs.shape[0]
         delta = self.bbox_embed(hs).float()
         outputs_coord = (delta + inverse_sigmoid(references[:n_dec])).sigmoid()

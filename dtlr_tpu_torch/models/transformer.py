@@ -27,6 +27,15 @@ references keep each layer's undetached box and ``ref_enc`` the
 undetached selection. So a loss reaches a layer's box head only through
 that layer's own outputs.
 
+Dropout (``Dropout``) acts where JAX's ``nn.Dropout`` does, in train mode
+only: in the deformable encoder layer on the attention's residual, after
+the FFN's ReLU and on the FFN's residual; in every decoder layer on the
+self-attention's, the cross-attention's and the FFN's residuals and after
+the FFN's ReLU. The windowed encoder takes none, as JAX's applies none.
+Each decoder layer runs its sublayers in ``module_seq``'s order; the
+norms keep their names by sublayer (``norm2`` the self-attention's,
+``norm1`` the cross-attention's, ``norm3`` the FFN's).
+
 ``dtype`` is the compute dtype of every projection, as flax's: the
 encoder's input, the position encodings and the learned content queries
 enter in it, the norms return float32, and the heads' outputs are taken
@@ -35,7 +44,7 @@ to float32 before they meet the float32 anchors and references.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -50,6 +59,34 @@ from .windowed_encoder import WindowedEncoderLayer
 
 ENCODER_TYPES = ("windowed", "deformable")
 DECODER_CA = ("dense", "deform")
+#: a decoder layer's sublayers, which ``module_seq`` orders
+DECODER_MODULES = ("sa", "ca", "ffn")
+
+
+class Dropout:
+    """flax's ``nn.Dropout(rate)`` with ``deterministic=False``: each
+    element kept with probability 1 - rate (a Bernoulli draw from
+    ``generator``, the global generator when None) and scaled by
+    1 / (1 - rate), the rest zero; rate 1 gives zeros, as flax does."""
+
+    def __init__(self, rate: float, generator: Optional[torch.Generator] = None):
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"dropout rate {rate} is outside [0, 1]")
+        self.rate, self.generator = rate, generator
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        mask = mask.bernoulli_(keep, generator=self.generator).bool()
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 def get_encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
@@ -133,25 +170,29 @@ class EncoderLayer(nn.Module):
         self.linear2 = Dense(d_ffn, d_model, dtype=dtype)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, key_padding_mask):
+    def forward(self, src, pos, reference_points, spatial_shapes, key_padding_mask,
+                drop: Callable = _identity):
         src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes,
                               key_padding_mask)
-        src = self.norm1(src + src2)
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        src = self.norm1(src + drop(src2))
+        return self.norm2(src + drop(self.linear2(drop(F.relu(self.linear1(src))))))
 
 
 class DecoderLayer(nn.Module):
-    """Self-attention, cross-attention, FFN. The cross-attention is
-    ``MSDeformAttn`` from the query's box (``ca_type="deform"``) or dense
-    over the S keys (``"dense"``), with the box prior and its learned
-    per-head ``ca_box_gamma`` under ``box_bias``."""
+    """Self-attention, cross-attention, FFN, in ``module_seq``'s order. The
+    cross-attention is ``MSDeformAttn`` from the query's box
+    (``ca_type="deform"``) or dense over the S keys (``"dense"``), with the
+    box prior and its learned per-head ``ca_box_gamma`` under
+    ``box_bias``."""
 
     def __init__(self, d_model: int = 256, d_ffn: int = 2048, n_heads: int = 8,
                  dtype: torch.dtype = torch.float32, ca_type: str = "dense",
                  box_bias: bool = True, n_levels: int = 4, n_points: int = 4,
-                 shared_offsets: bool = False):
+                 shared_offsets: bool = False,
+                 module_seq: Sequence[str] = DECODER_MODULES):
         super().__init__()
         self.ca_type, self.box_bias = ca_type, box_bias and ca_type == "dense"
+        self.module_seq = tuple(module_seq)
         self.self_attn = MultiHeadAttention(d_model, n_heads, dtype)
         self.norm2 = LayerNorm(d_model)
         if self.box_bias:
@@ -168,19 +209,29 @@ class DecoderLayer(nn.Module):
 
     def forward(self, tgt, query_pos, reference_points_input, memory,
                 spatial_shapes, key_bias, memory_pos, query_group=None,
-                padding_mask=None):
-        q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, query_group=query_group))
-        if self.ca_type == "deform":
-            t2 = self.cross_attn(tgt + query_pos, reference_points_input, memory,
-                                 spatial_shapes, padding_mask)
-        else:
-            prior = (make_box_prior(reference_points_input, spatial_shapes,
-                                    self.ca_box_gamma.exp()) if self.box_bias else None)
-            t2 = self.cross_attn(tgt + query_pos, memory + memory_pos, memory,
-                                 key_bias=key_bias, box_prior=prior)
-        tgt = self.norm1(tgt + t2)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+                padding_mask=None, drop: Callable = _identity):
+        def sa(t):
+            q = t + query_pos
+            return self.norm2(t + drop(self.self_attn(q, q, t, query_group=query_group)))
+
+        def ca(t):
+            if self.ca_type == "deform":
+                t2 = self.cross_attn(t + query_pos, reference_points_input, memory,
+                                     spatial_shapes, padding_mask)
+            else:
+                prior = (make_box_prior(reference_points_input, spatial_shapes,
+                                        self.ca_box_gamma.exp()) if self.box_bias else None)
+                t2 = self.cross_attn(t + query_pos, memory + memory_pos, memory,
+                                     key_bias=key_bias, box_prior=prior)
+            return self.norm1(t + drop(t2))
+
+        def ffn(t):
+            return self.norm3(t + drop(self.linear2(drop(F.relu(self.linear1(t))))))
+
+        sublayers = {"sa": sa, "ca": ca, "ffn": ffn}
+        for name in self.module_seq:
+            tgt = sublayers[name](tgt)
+        return tgt
 
 
 class DeformableTransformer(nn.Module):
@@ -196,7 +247,7 @@ class DeformableTransformer(nn.Module):
                  dtype: torch.dtype = torch.float32, encoder_type: str = "windowed",
                  decoder_ca: str = "dense", dense_box_bias: bool = True,
                  shared_offsets: bool = False, enc_n_points: int = 4,
-                 dec_n_points: int = 4):
+                 dec_n_points: int = 4, module_seq: Sequence[str] = DECODER_MODULES):
         super().__init__()
         if encoder_type not in ENCODER_TYPES:
             raise ValueError(f"encoder_type must be one of {ENCODER_TYPES}, got {encoder_type!r}")
@@ -220,7 +271,7 @@ class DeformableTransformer(nn.Module):
         for i in range(num_decoder_layers):
             self.add_module(f"decoder_layer_{i}", DecoderLayer(
                 d_model, d_ffn, n_heads, dtype, decoder_ca, dense_box_bias,
-                num_feature_levels, dec_n_points, shared_offsets))
+                num_feature_levels, dec_n_points, shared_offsets, module_seq))
         self.decoder_norm = LayerNorm(d_model)
         self.enc_output = Dense(d_model, d_model, dtype=dtype)
         self.enc_output_norm = LayerNorm(d_model)
@@ -232,14 +283,17 @@ class DeformableTransformer(nn.Module):
                 enc_bbox_head: nn.Module, bbox_head: nn.Module,
                 dn_refpoint: Optional[torch.Tensor] = None,
                 dn_tgt: Optional[torch.Tensor] = None,
-                query_group: Optional[torch.Tensor] = None):
+                query_group: Optional[torch.Tensor] = None,
+                dropout: Optional[Dropout] = None):
         """srcs, pos_embeds per level (B, H, W, C); masks (B, H, W) True at
         padding; ``bbox_head`` is the box head shared by all decoder layers.
         With CDN: ``dn_refpoint`` (B, pad, 4) unsigmoided boxes and
         ``dn_tgt`` (B, pad, C) label embeddings go before the selected
         queries, and ``query_group`` (pad + nq,) int32 is every
         self-attention's group mask; hs and references then hold the
-        prefix's rows first."""
+        prefix's rows first. ``dropout`` (train mode) is applied at every
+        site of the deformable encoder and the decoder."""
+        drop = dropout or _identity
         B = srcs[0].shape[0]
         C = self.d_model
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
@@ -258,7 +312,7 @@ class DeformableTransformer(nn.Module):
             enc_ref = get_encoder_reference_points(spatial_shapes, valid_ratios)
             for i in range(self.num_encoder_layers):
                 memory = getattr(self, f"encoder_layer_{i}")(
-                    memory, pos_flat, enc_ref, spatial_shapes, mask_flat)
+                    memory, pos_flat, enc_ref, spatial_shapes, mask_flat, drop)
 
         # two-stage selection
         output_memory, output_proposals, proposal_valid = gen_encoder_output_proposals(
@@ -297,7 +351,7 @@ class DeformableTransformer(nn.Module):
                 gen_sineembed_for_position(ref_input[:, :, 0, :], dim=C // 2))
             out_dec = getattr(self, f"decoder_layer_{lid}")(
                 out_dec, query_pos, ref_input, memory, spatial_shapes, key_bias,
-                pos_flat, query_group, mask_flat)
+                pos_flat, query_group, mask_flat, drop)
             delta = bbox_head(out_dec).float()
             new_ref = (delta + inverse_sigmoid(reference_points)).sigmoid()
             # the next layer refines a stopped box; the outputs keep new_ref

@@ -8,7 +8,7 @@ tests hold these against stay beside their callers:
 ``eval/metrics.py`` (``levenshtein_plain``, ``edit_operations_plain``),
 ``data/transforms.py`` (``_upscale``), ``data/batching.py``
 (``normalize_plain``) and ``data/images.py`` (``png_unfilter_plain``,
-``jpeg_decode_plain``).
+``jpeg_decode_plain``, ``lzw_decode_plain``, ``packbits_decode_plain``).
 """
 
 from __future__ import annotations
@@ -33,8 +33,10 @@ _SIGNATURES = {
     "resize_bilinear_f32": (None, [_p, _i64, _i64, _i64, _p, _i64, _i64]),
     "normalize_into_f32": (None, [_p, _i64, _i64, _p, _i64, _i64, _p, _p]),
     "png_unfilter_u8": (_i64, [_p, _i64, _i64, _i64, _p]),
-    "jpeg_decode_baseline": (ctypes.c_int, [_p, _i64, _i64, _i64, _i64, _p, _p, _i64, _p, _p,
-                                            _i64, _p, ctypes.c_char_p, _i64]),
+    "tiff_packbits_u8": (_i64, [_p, _i64, _p, _i64]),
+    "tiff_lzw_u8": (_i64, [_p, _i64, _p, _i64]),
+    "jpeg_decode_huffman": (ctypes.c_int, [_p, _i64, _i64, _i64, _i64, _p, _p, _i64, _p, _p,
+                                           _i64, _i64, _p, ctypes.c_char_p, _i64]),
 }
 _lib = None
 _lock = threading.Lock()  # the batcher's thread and the caller's may ask at once
@@ -127,24 +129,46 @@ def png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def tiff_packbits(data: bytes, size: int) -> bytes:
+    """A PackBits strip expanded to at most ``size`` bytes."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    n = library().tiff_packbits_u8(_ptr(src), len(src), _ptr(out), size)
+    return out[:n].tobytes()
+
+
+def tiff_lzw(data: bytes, size: int) -> bytes:
+    """An LZW strip expanded to at most ``size`` bytes."""
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(size, np.uint8)
+    n = library().tiff_lzw_u8(_ptr(src), len(src), _ptr(out), size)
+    if n < 0:
+        from ..data.images import UnsupportedImage
+
+        raise UnsupportedImage("TIFF: an LZW code beyond the table")
+    return out[:n].tobytes()
+
+
 def jpeg_decode(data: bytes, info) -> np.ndarray:
-    """uint8 (H, W, 3) of a JPEG whose headers ``data/images.py``'s
-    ``parse_jpeg`` read into ``info``."""
+    """uint8 (H, W, 3) of a sequential or progressive JPEG whose headers
+    ``data/images.py``'s ``parse_jpeg`` read into ``info``."""
     buf = np.frombuffer(data, np.uint8)
     ncomp = len(info.sampling)
     sampling = np.ascontiguousarray(info.sampling, np.int64)
     quant = np.ascontiguousarray(info.quant, np.uint16)
-    scans = np.zeros((len(info.scans), 16), np.int64)
+    scans = np.zeros((len(info.scans), 20), np.int64)
     tables = np.ascontiguousarray(np.stack([s.tables for s in info.scans]), np.uint8)
     for i, s in enumerate(info.scans):
         scans[i, :4] = s.start, s.end, s.restart_interval, len(s.components)
         for k, (c, d, a) in enumerate(zip(s.components, s.dc, s.ac)):
             scans[i, 4 + 3 * k:7 + 3 * k] = c, d, a
+        scans[i, 16:] = s.ss, s.se, s.ah, s.al
     out = np.empty((info.height, info.width, 3), np.uint8)
     err = ctypes.create_string_buffer(256)
-    rc = library().jpeg_decode_baseline(
+    rc = library().jpeg_decode_huffman(
         _ptr(buf), len(buf), info.width, info.height, ncomp, _ptr(sampling), _ptr(quant),
-        len(info.scans), _ptr(scans), _ptr(tables), info.transform, _ptr(out), err, len(err))
+        len(info.scans), _ptr(scans), _ptr(tables), int(info.progressive), info.transform,
+        _ptr(out), err, len(err))
     if rc:
         from ..data.images import UnsupportedImage
 

@@ -8,10 +8,10 @@ CTC finetuning:
 
 The port's own copy of the values in outputs/finetune_r4b/config_cfg.py
 (the run that finetuned the shipped Latin checkpoints), with the JAX
-package's defaults where that file sets nothing. Its ``dropout = 0.0``
-has no field: the port's modules have no dropout (``steps_per_epoch``
+package's defaults where that file sets nothing (``steps_per_epoch``
 1250 and ``warmup_steps`` 0, dtlr_tpu/train/optim.py:32-33; ``print_freq``
-50, dtlr_tpu/train/engine.py:209).
+50, dtlr_tpu/train/engine.py:209). Its ``dropout = 0.0`` is the model's
+(``DinoConfig.dropout``), as are the other architecture keys.
 """
 
 from __future__ import annotations
@@ -139,7 +139,9 @@ def _parse_value(text: str, kind):
             raise ValueError(f"not a bool: {text!r}")
         return text.lower() in ("true", "1")
     if typing.get_origin(kind) is tuple:
-        return tuple(int(v) for v in text.strip("()[]").split(",") if v.strip())
+        item = typing.get_args(kind)[0]
+        return tuple(item(v.strip().strip("'\"")) for v in text.strip("()[]").split(",")
+                     if v.strip())
     return kind(text)
 
 
@@ -165,7 +167,8 @@ def apply_options(train_cfg, model_cfg, options):
 
 #: fields whose config key has another name
 _KEY_OF_FIELD = {"reuse": "synthetic_reuse", "shared_offsets": "deform_shared_offsets",
-                 "norm_kind": "batch_norm_type"}
+                 "norm_kind": "batch_norm_type", "pe_temperature_h": "pe_temperatureH",
+                 "pe_temperature_w": "pe_temperatureW"}
 #: keys a CTC finetune does not take: dtlr_tpu/train/finetune.py:206-214
 #: passes the batcher no reuse pool and no erasing
 _NOT_IN_FINETUNE = ("synthetic_reuse", "truly_random_erasing")
@@ -187,6 +190,8 @@ JAX_DEFAULTS = {
     # the architecture (dtlr_tpu/models/dino.py:348-360): the reference's
     "encoder_type": "deformable", "decoder_ca": "deform", "dense_box_bias": False,
     "deform_shared_offsets": False, "batch_norm_type": "FrozenBatchNorm2d",
+    "decoder_module_seq": ("sa", "ca", "ffn"), "pe_temperatureH": 20.0,
+    "pe_temperatureW": 20.0,
 }
 #: the held-out set's default size per kind (pretrain.py:232, finetune.py:193)
 _EVAL_SET_SIZE = {"ctc": 64, "pretrain": 200}
@@ -194,7 +199,8 @@ _EVAL_SET_SIZE = {"ctc": 64, "pretrain": 200}
 REQUIRED = ("num_queries", "hidden_dim", "nheads", "enc_layers", "dec_layers",
             "dim_feedforward", "lr", "lr_backbone", "lr_drop", "epochs", "batch_size",
             "data_aug_scales", "data_aug_max_size", "cls_loss_coef", "bbox_loss_coef",
-            "giou_loss_coef", "backbone", "enc_n_points", "dec_n_points")
+            "giou_loss_coef", "backbone", "enc_n_points", "dec_n_points",
+            "num_feature_levels", "dropout")
 #: the architecture's keys that ``DinoConfig`` reads and the values the
 #: port's modules accept (dtlr_tpu/models/transformer.py:299-307,
 #: resnet.py:52-57, dino.py:123-141)
@@ -205,13 +211,8 @@ ACCEPTED = {
     "backbone": tuple(STAGES) + tuple(SWIN_CONFIGS) + tuple(CONVNEXT_CONFIGS),
 }
 #: the rest of the architecture, which the port has at one value only, as
-#: (key, that value, JAX's default where the key is absent)
+#: JAX has (key, that value, JAX's default where the key is absent)
 ARCHITECTURE = {
-    "num_feature_levels": (4, None),
-    "decoder_module_seq": (["sa", "ca", "ffn"], ["sa", "ca", "ffn"]),
-    "dropout": (0.0, None),
-    "pe_temperatureH": (20, 20),
-    "pe_temperatureW": (20, 20),
     "param_dtype": ("float32", "float32"),
 }
 KINDS = {"ctc": TrainConfig, "pretrain": PretrainConfig}
@@ -223,7 +224,7 @@ def _coerce(value, kind):
             return None
         kind = typing.get_args(kind)[0]
     if typing.get_origin(kind) is tuple:
-        return tuple(int(v) for v in value)
+        return tuple(typing.get_args(kind)[0](v) for v in value)
     if kind is float:
         return float(value)
     if kind is int and not isinstance(value, bool):
@@ -236,8 +237,7 @@ def _coerce(value, kind):
 def check_architecture(cfg) -> None:
     """Refuse a config whose model the port does not have: a backbone,
     encoder, cross-attention or norm that JAX's modules do not know, or
-    another value of a key in ``ARCHITECTURE`` (levels, decoder order,
-    dropout, position-encoding temperatures, parameter dtype)."""
+    another value of a key in ``ARCHITECTURE`` (the parameter dtype)."""
     for key, accepted in ACCEPTED.items():
         value = cfg[key] if key in cfg else JAX_DEFAULTS.get(key)
         if value is None:

@@ -188,6 +188,7 @@ class Trainer:
         #: uninterrupted one
         self.seed = seed
         self.cdn_generator = torch.Generator(self.device).manual_seed(seed)
+        self._dropout_gen: Optional[torch.Generator] = None
         self.epoch = 0
 
     def log(self, msg: str) -> None:
@@ -233,11 +234,24 @@ class Trainer:
         """One train step on a batch; the metrics stay on
         the device. ``mark`` goes to the detection step (its phases' ends)."""
         arrays = to_device(rank_rows(batch), self.device)
+        dropout = self.dropout_generator()
         if self.mode == "detection":
-            self.state, metrics = self.step_fn(self.state, arrays, self.cdn_generator, mark)
+            self.state, metrics = self.step_fn(self.state, arrays, self.cdn_generator, mark,
+                                               dropout)
         else:
-            self.state, metrics = self.step_fn(self.state, arrays)
+            self.state, metrics = self.step_fn(self.state, arrays, dropout)
         return metrics
+
+    def dropout_generator(self) -> Optional[torch.Generator]:
+        """The step's generator of dropout masks, seeded from the run's
+        seed, the step's index and the rank (JAX draws each step's masks
+        from a key split off the epoch's); None at rate 0."""
+        if self.model_cfg.dropout == 0:
+            return None
+        if self._dropout_gen is None:
+            self._dropout_gen = torch.Generator(self.device)
+        seed = np.random.SeedSequence([self.seed, self.state.step, self.rank]).generate_state(2)
+        return self._dropout_gen.manual_seed(int(seed[0]) << 32 | int(seed[1]))
 
     def train_epoch(self, batches: Iterable, max_iterations: int = -1,
                     train_cer_every: int = 0) -> Dict[str, float]:
@@ -317,9 +331,34 @@ class Trainer:
         self.append_log_line({"epoch": self.epoch, "eval": stats})
         return stats
 
+    def save_snapshot(self, host, logits: np.ndarray, boxes: np.ndarray,
+                      charset: Sequence[str]) -> None:
+        """The first line of an evaluation's first batch with its
+        detections drawn (dtlr_tpu/train/engine.py:404-438): the queries
+        scoring above TH 0.3, or the top 40 when none does, and the
+        ground-truth boxes that have extent, as
+        ``<output_dir>/snapshots/snapshot_epochNNNN.png``, written by
+        rank 0."""
+        if self.rank != 0:
+            return
+        from ..utils.visualizer import save_snapshot
+
+        scores = 1 / (1 + np.exp(-logits.max(-1)))
+        keep = scores > 0.3
+        if not keep.any():
+            keep = np.zeros_like(keep)
+            keep[np.argsort(scores)[-40:]] = True
+        gt_valid = np.asarray(host["valid"][0], bool)
+        gt_boxes = np.asarray(host["boxes"][0])[gt_valid]
+        gt_boxes = gt_boxes[(gt_boxes[:, 2] > 0) & (gt_boxes[:, 3] > 0)]
+        save_snapshot(os.path.join(self.output_dir, "snapshots"), self.epoch,
+                      np.asarray(host["images"][0]), boxes[keep], logits.argmax(-1)[keep],
+                      charset, valid_hw=np.asarray(host["valid_hw"][0]),
+                      gt_boxes=gt_boxes if len(gt_boxes) else None)
+
     @torch.no_grad()
     def evaluate_ctc(self, batches: Iterable, charset: Sequence[str], use_ema: bool = False,
-                     tag: str = "eval") -> Dict[str, float]:
+                     tag: str = "eval", snapshot: bool = True) -> Dict[str, float]:
         """Read a held-out set as dtlr_tpu/train/engine.py:357-495 does,
         with the raw weights or (``use_ema``, if the state keeps them) the
         EMA weights: the greedy CER (corpus, standardized) and the NMS
@@ -331,7 +370,8 @@ class Trainer:
         ``nq@TH`` the queries per line scoring above TH, and on the first
         batch ``p_gt_matched``, the mean probability of each target's
         class at the query whose box overlaps it most. Logged under
-        ``tag``."""
+        ``tag``. With ``snapshot`` the first batch's first line is drawn
+        (``save_snapshot``); a failure there is logged, not raised."""
         model = self.state.model
         model.eval()
         ema = self.state.ema if use_ema else None
@@ -364,6 +404,11 @@ class Trainer:
             if i == 0:
                 probs = 1.0 / (1.0 + np.exp(-logits))
                 boxes = out["pred_boxes"].float().cpu().numpy()
+                if snapshot:
+                    try:
+                        self.save_snapshot(host, logits[0], boxes[0], charset)
+                    except Exception as exc:  # a snapshot never stops an evaluation
+                        self.log(f"snapshot failed: {exc}")
                 p_sum, p_n = 0.0, 0
                 for b in range(logits.shape[0]):
                     gt_b = np.asarray(host["boxes"][b], np.float32)[valid[b]]

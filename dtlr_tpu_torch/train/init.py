@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from ..models.convnext import LAYER_SCALE
-from ..models.dino import DINO, NUM_LEVELS, DinoConfig
+from ..models.dino import DINO, DinoConfig
 from .checkpoints import params_to_flax
 
 #: flax's truncated_normal std correction: the std of a unit normal
@@ -115,7 +115,8 @@ def draw(name: str, shape, gen: torch.Generator, cfg: DinoConfig) -> torch.Tenso
     kind = family(name, len(shape))
     if kind == "ring":
         points = cfg.enc_n_points if ".encoder_layer_" in name else cfg.dec_n_points
-        return ring_bias(1 if cfg.shared_offsets else cfg.nheads, NUM_LEVELS, points)
+        return ring_bias(1 if cfg.shared_offsets else cfg.nheads, cfg.num_feature_levels,
+                         points)
     if kind == "zero":
         return torch.zeros(shape)
     if kind == "one":

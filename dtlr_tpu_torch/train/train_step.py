@@ -1,8 +1,9 @@
 """The train state, the detection training step and the CTC finetuning
 step (counterpart of dtlr_tpu/train/train_step.py:22-150).
 
-One step: the forward in train mode (the recipe's dropout is 0, and the
-port's modules have none), the loss (the DINO detection loss with its
+One step: the forward in train mode (dropout at the model's rate, drawn
+from the step's generator ``dropout``, JAX's ``rngs={"dropout": ...}``;
+the recipes' rate is 0), the loss (the DINO detection loss with its
 contrastive denoising queries, or ``ctc_loss``), the backward, the
 optimizer's update with the NaN-skip (a non-finite loss zeroes the
 gradients and the update, and still advances the optimizer's state,
@@ -137,26 +138,28 @@ def make_detection_train_step(num_classes: int, weight_dict: Dict[str, float],
                               focal_alpha: float = 0.25, matcher_impl: str = "jax",
                               cost_class: float = 2.0, cost_bbox: float = 5.0,
                               cost_giou: float = 2.0, ema_decay: float = 0.0):
-    """Returns step(state, batch, cdn_noise=None, mark=None) -> (state,
-    metrics), the counterpart of dtlr_tpu/train/train_step.py:52-106.
+    """Returns step(state, batch, cdn_noise=None, mark=None, dropout=None)
+    -> (state, metrics), the counterpart of dtlr_tpu/train/train_step.py:52-106.
     ``batch`` holds ``images`` (B, H, W, 3) uint8 or normalized,
     ``valid_hw`` (B, 2), ``labels`` (B, N), ``boxes`` (B, N, 4) cxcywh in
     [0, 1] and ``valid`` (B, N) on the model's device; ``cdn_noise`` is
     the generator of the denoising queries' noise or the draws
     (``models/cdn.py``); ``mark(phase)``, when given, is called as each of
     "forward", "matching", "loss", "backward" and "update" ends (a
-    profiler records events there). Metrics: ``loss`` (the weighted
+    profiler records events there); ``dropout`` the generator of the
+    dropout masks (the global one when None). Metrics: ``loss`` (the weighted
     total), ``skipped`` (1.0 when it was not finite), ``grad_norm``
     (before the clip) and every unweighted loss term, all 0-d tensors.
-    ``step.loss_fn(model, batch, cdn_noise)`` is the forward and the loss
-    alone, returning (total, terms)."""
+    ``step.loss_fn(model, batch, cdn_noise, mark, dropout)`` is the
+    forward and the loss alone, returning (total, terms)."""
 
-    def loss_fn(model: DINO, batch: Batch, cdn_noise=None, mark=_no_mark):
+    def loss_fn(model: DINO, batch: Batch, cdn_noise=None, mark=_no_mark, dropout=None):
         targets = {k: batch[k] for k in ("labels", "boxes", "valid")}
         images = prep_images(batch["images"], batch["valid_hw"])
         if mesh.world_size() > 1:
             cdn_noise = _rank_noise(model, batch, cdn_noise)
-        outputs = model(images, batch["valid_hw"], targets, train=True, cdn_noise=cdn_noise)
+        outputs = model(images, batch["valid_hw"], targets, train=True, cdn_noise=cdn_noise,
+                        dropout=dropout)
         mark("forward")
         matched = [outputs] + list(outputs.get("aux_outputs", [])) + (
             [outputs["interm_outputs"]] if "interm_outputs" in outputs else [])
@@ -170,13 +173,13 @@ def make_detection_train_step(num_classes: int, weight_dict: Dict[str, float],
         mark("loss")
         return result
 
-    def step(state: TrainState, batch: Batch, cdn_noise=None, mark=None):
+    def step(state: TrainState, batch: Batch, cdn_noise=None, mark=None, dropout=None):
         mark = mark or _no_mark
         model = state.model
         model.train()
         for p in model.parameters():
             p.grad = None
-        total, losses = loss_fn(model, batch, cdn_noise, mark)
+        total, losses = loss_fn(model, batch, cdn_noise, mark, dropout)
         total.backward()
         if mesh.distributed():
             total, losses = _all_reduce(model, total, losses)
@@ -194,30 +197,33 @@ def make_detection_train_step(num_classes: int, weight_dict: Dict[str, float],
 
 def make_ctc_train_step(ctc_eps: float = 0.003, ctc_coef: float = 1.0,
                         ema_decay: float = 0.0) -> Callable[[TrainState, Batch], Tuple[TrainState, dict]]:
-    """Returns step(state, batch) -> (state, metrics) with metrics
+    """Returns step(state, batch, dropout=None) -> (state, metrics) with
+    metrics
     ``loss`` (ctc_coef * loss_CTC), ``loss_CTC``, ``skipped`` (1.0 when
     the loss was not finite) and ``grad_norm`` (the gradients' global
     norm before the clip), all 0-d tensors on the model's device.
     ``batch`` holds ``images`` (B, H, W, 3) uint8 or normalized,
     ``valid_hw`` (B, 2), ``labels`` (B, N) and ``valid`` (B, N) on that
-    device. ``step.loss_fn(model, batch)`` is the forward and the loss
+    device; ``dropout`` the generator of the dropout masks. The forward is
+    in train mode without targets, as JAX's (no denoising queries).
+    ``step.loss_fn(model, batch, dropout)`` is the forward and the loss
     alone."""
 
-    def loss_fn(model: DINO, batch: Batch):
+    def loss_fn(model: DINO, batch: Batch, dropout=None):
         images = prep_images(batch["images"], batch["valid_hw"])
-        outputs = model(images, batch["valid_hw"])
+        outputs = model(images, batch["valid_hw"], train=True, dropout=dropout)
         W = mesh.world_size()
         loss, probs = ctc_loss(outputs["pred_logits"], outputs["pred_boxes"],
                                batch["labels"], batch["valid"], eps=ctc_eps,
                                lines=batch["labels"].shape[0] * W if W > 1 else None)
         return ctc_coef * loss, (loss, probs)
 
-    def step(state: TrainState, batch: Batch):
+    def step(state: TrainState, batch: Batch, dropout=None):
         model = state.model
         model.train()
         for p in model.parameters():
             p.grad = None
-        total, (raw, _) = loss_fn(model, batch)
+        total, (raw, _) = loss_fn(model, batch, dropout)
         total.backward()
         if mesh.distributed():
             total, raw = _all_reduce(model, total, {"loss_CTC": raw})

@@ -153,9 +153,13 @@ def test_stop_ends_the_worker():
 
 
 def test_worker_errors_reach_the_consumer():
-    b = TB.BucketBatcher(iter(seeded_lines(5, n=2)), batch_size=2, scales=[64], max_size=256,
-                         w_max=256, rotate_p=1.0)
-    with pytest.raises(NotImplementedError, match="PIL"):
+    def failing_source():
+        yield from seeded_lines(5, n=1)
+        raise RuntimeError("the source failed")
+
+    b = TB.BucketBatcher(failing_source(), batch_size=2, scales=[64], max_size=256,
+                         w_max=256)
+    with pytest.raises(RuntimeError, match="the source failed"):
         next(iter(b))
     b.stop()
 

@@ -226,10 +226,10 @@ def test_recipe_file_builds_jax_s_model(name):
 
 @pytest.mark.parametrize("option,match", [
     ("backbone=swin_X_224_1k", "backbone in"),
-    ("num_feature_levels=3", "num_feature_levels = 4"),
-    ("dropout=0.1", "dropout = 0.0"),
+    ("param_dtype=bfloat16", "param_dtype = 'float32'"),
+    ("batch_norm_type=LayerNorm", "batch_norm_type in"),
     ("encoder_type=sparse", "encoder_type in"),
-], ids=["swin", "three_levels", "dropout", "unknown_encoder"])
+], ids=["swin", "param_dtype", "unknown_norm", "unknown_encoder"])
 def test_what_the_port_lacks_is_refused(option, match):
     cfg = TL.apply_options(TL.load_config(port_path("Latin.py")), TL.parse_options([option]))
     with pytest.raises(NotImplementedError, match=match):

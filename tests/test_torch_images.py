@@ -4,14 +4,17 @@ bit for bit, through the native runtime and through the numpy versions.
 
 - PNG: every mode and bit depth PIL writes (1-bit, L, LA, P at 1, 2, 4
   and 8 bits, RGB, RGBA), 2- and 4-bit gray and each of the five row
-  filters on files written here with zlib and struct; 16-bit samples,
-  Adam7 interlacing and a bad CRC raise.
+  filters on files written here with zlib and struct; an undefined
+  interlace method, a 16-bit palette and a bad CRC raise (16-bit and
+  Adam7 files: test_torch_image_forms.py).
 - Baseline JPEG written by PIL's libjpeg-turbo: gray and RGB, qualities
   10-100, subsampling 4:4:4, 4:2:2 and 4:2:0, sizes from 1x1 to 72x741,
   optimized Huffman tables, restart markers, RGB without the colour
   transform, and h1v2 and 4x1 sampling (a 4:2:2 or 4:2:0 file's frame
-  header rewritten, the MCU count unchanged); progressive, CMYK and
-  arithmetic-coded files raise, and so does TIFF.
+  header rewritten, the MCU count unchanged); an incomplete progressive
+  file, CMYK and arithmetic-coded files raise, and so does a
+  CCITT-compressed TIFF (progressive JPEG and TIFF:
+  test_torch_image_forms.py).
 """
 
 import io
@@ -125,11 +128,11 @@ def test_png_low_depth_gray_mixed_filters(depth):
 
 def test_png_refusals():
     rows = picture(5, 4).reshape(4, -1)
-    with pytest.raises(I.UnsupportedImage, match="interlacing"):
-        I.decode_image(png_file(rows, 5, 8, 2, 3, [0] * 4, interlace=1))
-    data16 = saved(Image.fromarray(picture(6, 5)[..., 0]).convert("I;16"), "PNG")
-    with pytest.raises(I.UnsupportedImage, match="16-bit"):
-        I.decode_image(data16)
+    with pytest.raises(I.UnsupportedImage, match="interlace method 2"):
+        I.decode_image(png_file(rows, 5, 8, 2, 3, [0] * 4, interlace=2))
+    palette16 = png_file(rows, 5, 16, 3, 2, [0] * 4, extra=chunk(b"PLTE", bytes(range(48))))
+    with pytest.raises(I.UnsupportedImage, match="bit depth 16 with colour type 3"):
+        I.decode_image(palette16)
     good = png_file(rows, 5, 8, 2, 3, [0] * 4)
     bad = bytearray(good)
     bad[len(I.PNG_SIGNATURE) + 8 + 13] ^= 1  # a byte of IHDR's CRC
@@ -199,8 +202,11 @@ def test_jpeg_other_sampling_factors(subsampling, factors, size):
 
 def test_jpeg_and_tiff_refusals():
     im = Image.fromarray(picture(30, 20))
-    with pytest.raises(I.UnsupportedImage, match="progressive"):
-        I.decode_image(saved(im, "JPEG", progressive=True))
+    progressive = saved(im, "JPEG", progressive=True)
+    cut = I.parse_jpeg(progressive).scans[5].start  # the first five scans, then EOI
+    incomplete = progressive[:progressive.rindex(b"\xff\xda", 0, cut)] + b"\xff\xd9"
+    with pytest.raises(I.UnsupportedImage, match="incomplete"):
+        I.decode_image(incomplete)
     with pytest.raises(I.UnsupportedImage, match="CMYK"):
         I.decode_image(saved(im.convert("CMYK"), "JPEG"))
     arithmetic = bytearray(saved(im, "JPEG"))
@@ -211,9 +217,9 @@ def test_jpeg_and_tiff_refusals():
     twelve[twelve.index(b"\xff\xc0") + 4] = 12
     with pytest.raises(I.UnsupportedImage, match="12-bit"):
         I.decode_image(bytes(twelve))
-    with pytest.raises(I.UnsupportedImage, match="does not decode TIFF"):
-        I.decode_image(saved(im, "TIFF"))
-    with pytest.raises(I.UnsupportedImage, match="not a PNG or JPEG"):
+    with pytest.raises(I.UnsupportedImage, match="CCITT Group 4 fax compression"):
+        I.decode_image(saved(im.convert("1"), "TIFF", compression="group4"))
+    with pytest.raises(I.UnsupportedImage, match="not a PNG, JPEG or TIFF"):
         I.decode_image(b"GIF89a....")
 
 
@@ -229,5 +235,9 @@ def test_load_image_is_jax_load_image(tmp_path):
         np.testing.assert_array_equal(got, want)
     (tmp_path / "c.jpg").write_bytes(saved(Image.fromarray(picture(8, 8)), "JPEG",
                                            progressive=True))
-    with pytest.raises(I.UnsupportedImage, match="c.jpg: JPEG: progressive"):
-        I.load_image(str(tmp_path / "c.jpg"))
+    got, want = I.load_image(str(tmp_path / "c.jpg")), _load_image(str(tmp_path / "c.jpg"))
+    np.testing.assert_array_equal(got, want)
+    (tmp_path / "d.jpg").write_bytes(saved(Image.fromarray(picture(8, 8)).convert("CMYK"),
+                                           "JPEG"))
+    with pytest.raises(I.UnsupportedImage, match="d.jpg: JPEG: 4-component"):
+        I.load_image(str(tmp_path / "d.jpg"))

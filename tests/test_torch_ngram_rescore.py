@@ -209,10 +209,10 @@ def test_sweep_lm_matches_jax(setup, capsys):
 
 @pytest.mark.parametrize("dataset,error,reason", [
     ("synthetic", NotImplementedError, "renders its lines with PIL"),
-    ("RIMES", UnsupportedImage, "progressive JPEG")])
+    ("RIMES", UnsupportedImage, "4-component")])
 def test_jax_datasets_are_refused(setup, dataset, error, reason):
     """The renderer's dataset, and a real dataset's line that the port does
-    not decode (a RIMES layout whose line is a progressive JPEG)."""
+    not decode (a RIMES layout whose line is a CMYK JPEG)."""
     root = setup["tmp"] / "data"
     labels = root / "RIMES-2011-Lines" / "labels_corr.pkl"
     labels.parent.mkdir(parents=True, exist_ok=True)
@@ -220,8 +220,8 @@ def test_jax_datasets_are_refused(setup, dataset, error, reason):
         pickle.dump({"charset": setup["charset"],
                      "ground_truth": {"test": [{"id": "l0", "text": "a"}]}}, fh)
     (root / "RIMES-2011-Lines" / "Images").mkdir(exist_ok=True)
-    Image.new("RGB", (40, 16), (200, 200, 200)).save(
-        root / "RIMES-2011-Lines" / "Images" / "l0.jpg", progressive=True)
+    Image.new("CMYK", (40, 16), (20, 20, 20, 0)).save(
+        root / "RIMES-2011-Lines" / "Images" / "l0.jpg")
     yaml = write_yaml(setup["tmp"] / f"{dataset}.yaml", dataset=dataset, mode="test",
                       data_root=root, params=setup["tmp"] / "tiny.npz", batch_size=1,
                       model_config=setup["tmp"] / "config_cfg.py")
