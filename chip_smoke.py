@@ -264,6 +264,28 @@ Phases, each printing one JSON line with its seconds:
            snapshot (snapshots/snapshot_epoch0000.png), and save_snapshot
            on committed arrays gives the JAX package's pixels
            (assets/smoke_snapshot.npz, tests/test_torch_visualizer.py)
+  synth    the Latin renderer (dtlr_tpu_torch/data/synthetic.py and its
+           canvas, corpus and font samplers, from the committed font bank
+           dtlr_tpu_torch/assets/latin_fonts/): (a) 16 lines in each of four
+           modes (scripts/round4_chain.sh's stream, the plain background,
+           the reference's text mode with a font dictionary and a wikitext
+           directory, a directory of PNG and JPEG backgrounds) against the
+           JAX package's lines from the same seeds and faces
+           (dtlr_tpu_torch/assets/smoke_synth_ref.npz, written by
+           tests/test_torch_synth_fixture.py): texts, labels, float32 boxes
+           and the sha256 of the pixels; host ms per line by step
+           (SYNTH_STEPS, each numpy or native); (b) python -m
+           dtlr_tpu_torch.train.pretrain -c configs/Latin_TPU.py
+           --dataset_file synthetic_line_OCR_general with round4_chain.sh's
+           options at full width, warm-started from artifacts/r4run_params.npz
+           (474 leaves copied), 3 steps and the raw and EMA evaluations of 8
+           held-out lines: the first two batches hash to the JAX package's,
+           finite losses, the launches as counted, ms per step, the
+           renderer's share of the host's batch time; (c) python -m
+           dtlr_tpu_torch.eval.evaluate --dataset synthetic (8 lines) and
+           python -m dtlr_tpu_torch.train.finetune --dataset_file synthetic
+           (2 steps, 64 held-out lines) from artifacts/r4ft_params.npz, with
+           their launches
   probe    the row-gather probe entry point (dtlr_tpu_torch.scripts.gather_probe)
 Then the line {"kernels": [...]} for every ported kernel (the attention
 in bf16 and, as ``*_fp32``, in fp32, at each dtype's path), the card's name
@@ -1926,6 +1948,25 @@ SNAPSHOT_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_snapshot.np
 #: large ones (dtlr_tpu/models/convnext.py:1-2), read and stepped only
 BACKBONES_HELD = ("swin_T_224_1k", "convnext_tiny")
 BACKBONES_LARGE = ("swin_L_224_22k", "convnext_xlarge_22k")
+#: the synth phase: the port's renderer's lines in four modes and the
+#: first two batches of the card's pretraining run, as the JAX package's
+#: generator and batcher make them from the banked faces' TTF files
+#: (written by tests/test_torch_synth_fixture.py), and the corpus files of
+#: scripts/round4_chain.sh
+SYNTH_REF = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_synth_ref.npz")
+CORPUS_TRAIN = os.path.join(REPO, "artifacts", "corpus_words_train.txt")
+CORPUS_VAL = os.path.join(REPO, "artifacts", "corpus_words_val.txt")
+#: the renderer's steps timed in the synth phase after each mode's first
+#: line (which builds the background pool): inclusive ms, a step's time
+#: holds the steps it calls; (name, module, attribute, where it runs)
+SYNTH_STEPS = (
+    ("face_load", "fonts", "load_face", "numpy: a banked face's npz, once per face"),
+    ("render_text_line", "synthetic", "render_text_line", "numpy: layout, boxes; calls below"),
+    ("draw_text", "glyphs", "draw_text", "numpy: banked masks into the RGBA layer"),
+    ("compose_canvas", "synthetic", "compose_canvas", "numpy: crop, jitter; calls below"),
+    ("noise_patterns", "canvas", "add_noise_patterns", "python: ellipses, lines"),
+    ("gaussian_blur", "transforms", "pil_gaussian_blur", "native (csrc/native.cpp)"),
+    ("alpha_composite", "pil_draw", "alpha_composite", "native (csrc/native.cpp)"))
 
 
 def backbone_config(backbone, compute_dtype="float32"):
@@ -3661,6 +3702,236 @@ def phase_arch(card):
     return records, launches
 
 
+def synth_generator(mode):
+    """The port's generator of one fixture mode, its background pool
+    emptied (tests/test_torch_synth_fixture.py's ``generator``)."""
+    from dtlr_tpu_torch.data import canvas, corpus, fonts, synthetic
+
+    path = lambda p: os.path.join(REPO, p)
+    canvas.set_background_dir(path(mode["background_dir"]) if mode.get("background_dir")
+                              else None)
+    faces = fonts.discover_fonts()
+    kw = dict(seed=mode["seed"], fonts=faces, plain_background=mode.get("plain_background", False))
+    if "max_words" in mode:
+        kw["max_words"] = mode["max_words"]
+    if mode.get("corpus_file"):
+        kw["corpus_lines"] = corpus.read_corpus(path(mode["corpus_file"]))
+        kw["corpus_prob"] = mode["corpus_prob"]
+    if mode.get("reference_text"):
+        kw["reference_text_mode"] = True
+        kw["font_sampler"] = fonts.FontSampler.from_reference_json(
+            path(mode["font_dict"]), fallback_fonts=faces,
+            rng=np.random.default_rng(mode["seed"] + 13))
+        kw["corpus_sampler"] = corpus.CorpusSampler.from_dir(
+            path(mode["corpus_dir"]), language="en", mode="train",
+            rng=np.random.default_rng(mode["seed"] + 17))
+    return synthetic.SyntheticLineGenerator(**kw)
+
+
+@contextlib.contextmanager
+def synth_step_timers():
+    """Wrap each of SYNTH_STEPS to add its host ms to a dict (the canvas's
+    and the generator's own references to a step included)."""
+    import importlib
+
+    ms = {name: 0.0 for name, *_ in SYNTH_STEPS}
+    undo = []
+    for name, module, attr, _ in SYNTH_STEPS:
+        mod = importlib.import_module(f"dtlr_tpu_torch.data.{module}")
+        fn = getattr(mod, attr)
+
+        def timed_fn(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                ms[_name] += (time.perf_counter() - t0) * 1e3
+
+        # every module that holds the function under its name
+        for other in ("synthetic", "canvas", "glyphs", "fonts", "pil_draw", "transforms"):
+            holder = importlib.import_module(f"dtlr_tpu_torch.data.{other}")
+            if getattr(holder, attr, None) is fn:
+                setattr(holder, attr, timed_fn)
+                undo.append((holder, attr, fn))
+    try:
+        yield ms
+    finally:
+        for holder, attr, fn in undo:
+            setattr(holder, attr, fn)
+
+
+def synth_fixture_gate(card):
+    """(a): each mode's lines against the fixture's texts, labels, boxes
+    and pixel hashes; host ms per line, by step."""
+    import hashlib
+
+    with np.load(SYNTH_REF) as z:
+        modes = json.loads(str(z["modes"]))
+    records = []
+    for mode in modes:
+        t0 = time.perf_counter()
+        gen = synth_generator(mode)
+        lines = [gen.sample()]
+        first_ms = (time.perf_counter() - t0) * 1e3
+        with synth_step_timers() as steps:
+            t1 = time.perf_counter()
+            lines += [gen.sample() for _ in range(mode["n"] - 1)]
+            rest_ms = (time.perf_counter() - t1) * 1e3
+        differ = []
+        for i, (s, want) in enumerate(zip(lines, mode["lines"])):
+            u8 = np.round(s.image.astype(np.float64) * 255.0).astype(np.uint8)
+            same = (s.text == want["text"] and s.labels.tolist() == want["labels"]
+                    and np.array_equal(s.boxes, np.asarray(want["boxes"], np.float32))
+                    and list(s.image.shape) == want["shape"]
+                    and np.array_equal(u8.astype(np.float32) / 255.0, s.image)
+                    and hashlib.sha256(u8.tobytes()).hexdigest() == want["sha256"])
+            if not same:
+                differ.append(i)
+        n = len(lines)
+        rec = {"phase": "synth", "part": "fixture", "mode": mode["name"], "lines": n,
+               "lines_differing": differ, "first_line_ms_with_pool": first_ms,
+               "ms_per_line": rest_ms / (n - 1),
+               "steps_ms_per_line": {k: v / (n - 1) for k, v in steps.items()},
+               "steps_run_by": {name: by for name, _, _, by in SYNTH_STEPS},
+               "seconds": (time.perf_counter() - t0), "card": card}
+        rec["ok"] = n == len(mode["lines"]) and not differ
+        records.append(rec)
+        emit(rec)
+    from dtlr_tpu_torch.data import canvas
+
+    canvas.set_background_dir(None)
+    return records
+
+
+def synth_pretrain(card, workdir):
+    """(b): the pretraining entry point on rendered lines at full width,
+    warm-started from the pretraining trunk: its first two batches JAX's,
+    finite losses, the launches as counted, ms per step and the renderer's
+    share of the host's batch time."""
+    import threading
+
+    from dtlr_tpu_torch.data import batching, synthetic
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.train import pretrain
+
+    with np.load(SYNTH_REF) as z:
+        ref = json.loads(str(z["pretrain"]))
+    corpus = {"artifacts/corpus_words_train.txt": CORPUS_TRAIN,
+              "artifacts/corpus_words_val.txt": CORPUS_VAL}
+    options = []
+    for opt in ref["options"]:
+        for rel, full in corpus.items():
+            opt = opt.replace(f'"{rel}"', f'"{full}"')
+        options.append(opt)
+    n_dec = FLAGSHIP.dec_layers
+    render_ms, batch_ms, inside = [], [], threading.local()
+    sample, make_batch = synthetic.SyntheticLineGenerator.sample, batching.BucketBatcher._make_batch
+
+    def timed_sample(self):
+        out, ms = timed(sample, self)
+        if getattr(inside, "batch", False):
+            render_ms.append(ms)
+        return out
+
+    def timed_batch(self):
+        inside.batch = True
+        try:
+            out, ms = timed(make_batch, self)
+        finally:
+            inside.batch = False
+        batch_ms.append(ms)
+        return out
+
+    def launches(res, steps):
+        n_eval = eval_forwards(res)  # the eight held-out lines are one batch
+        return {"mha_box": n_dec * (steps + n_eval), "mha": n_dec * n_eval,
+                "mha_masked": n_dec * steps}
+
+    synthetic.SyntheticLineGenerator.sample = timed_sample
+    batching.BucketBatcher._make_batch = timed_batch
+    try:
+        res, steps, rec = sub_run("synth_pretrain", lambda: pretrain.main(
+            ["-c", os.path.join(CONFIGS, ref["config"].split("/")[-1]), "--dataset_file",
+             "synthetic_line_OCR_general", "--output_dir", os.path.join(workdir, "pretrain"),
+             "--warm_start_npz", DETECT_PARAMS, "--epochs", "1", "--steps_per_epoch", "3",
+             "--eval_every", "1", "--seed", str(ref["seed"]), "--options", *options]), launches)
+    finally:
+        synthetic.SyntheticLineGenerator.sample = sample
+        batching.BucketBatcher._make_batch = make_batch
+    seen = [s["batch"] for s in steps]
+    evals = [e for ep in res["epochs"] for e in ep["evals"]]
+    losses = [res["train"]["loss"], res["eval"]["loss"]] + [e["loss_CTC"] for e in evals]
+    rec.update(phase="synth", warm_start={k: res["warm_start"][k]
+                                          for k in ("copied", "fresh", "unused")},
+               batches_equal_jax=[b == r for b, r in zip(seen, ref["batches"])],
+               train=res["train"], evals=evals, detection_eval=res["eval"],
+               render_ms=sum(render_ms), lines_rendered=len(render_ms),
+               host_batch_ms=sum(batch_ms), batches_made=len(batch_ms),
+               render_share_of_host_batch_time=sum(render_ms) / max(sum(batch_ms), 1e-9),
+               card=card)
+    rec["ok"] = (rec["ok"] and rec["steps"] == 3 and len(rec["batches_equal_jax"]) == 2
+                 and all(rec["batches_equal_jax"])
+                 and rec["warm_start"] == {"copied": 474, "fresh": 0, "unused": 0}
+                 and res["train"]["skipped"] == 0 and all(math.isfinite(x) for x in losses)
+                 and [e["tag"] for e in evals] == ["eval", "eval_ema"]
+                 and all(e["n"] == 8 for e in evals))
+    emit(rec)
+    return rec
+
+
+def synth_entry_points(card, workdir):
+    """(c): evaluate and the CTC finetune on rendered lines with the
+    flagship checkpoint (its no-accent-with-space charset)."""
+    from dtlr_tpu_torch.eval import evaluate
+    from dtlr_tpu_torch.models.dino import FLAGSHIP
+    from dtlr_tpu_torch.train import finetune
+
+    n_dec = FLAGSHIP.dec_layers
+    corpus = [f'synthetic_corpus_file="{CORPUS_TRAIN}"', f'synthetic_corpus_val_file="{CORPUS_VAL}"']
+    res, _, ev = sub_run("synth_evaluate", lambda: evaluate.main(
+        ["--params", PARAMS, "--config", FLAGSHIP_CONFIG, "--dataset", "synthetic",
+         "--max_images", "8", "--out_dir", os.path.join(workdir, "evaluate"), "--options",
+         *corpus]),
+        lambda res, steps: {"mha_box": n_dec, "mha": n_dec, "mha_masked": 0})
+    best = res["best"]["record"]
+    ev.update(phase="synth", lines=res["lines"], record=best, lines_per_s=res["lines_per_s"],
+              card=card)
+    ev["ok"] = ev["ok"] and res["lines"] == 8 and math.isfinite(best["CER"])
+
+    eval_batches = 64 // 8  # the 64 held-out lines
+    res, _, ft = sub_run("synth_finetune", lambda: finetune.main(
+        ["--dataset_file", "synthetic", "--pretrain_dir", PARAMS, "--full_model",
+         "--output_dir", os.path.join(workdir, "finetune"), "--epochs", "1", "--seed", "7",
+         "--options", "max_iterations=2", "eval_epoch=1", "synthetic_charset=no_accent_space",
+         "synthetic_max_words=5", "synthetic_corpus_prob=0.5",
+         f"synthetic_corpus_file={CORPUS_TRAIN}", f"synthetic_corpus_val_file={CORPUS_VAL}"]),
+        # the steps, the first step's training CER, the held-out lines
+        lambda res, steps: {"mha_box": n_dec * (steps + 1 + eval_batches),
+                            "mha": n_dec * (steps + 1 + eval_batches), "mha_masked": 0})
+    ft.update(phase="synth", train=res["train"], eval=res["eval"], card=card)
+    ft["ok"] = (ft["ok"] and ft["steps"] == 2 and res["train"]["skipped"] == 0
+                and math.isfinite(res["train"]["loss_CTC"]) and res["eval"]["n"] == 64
+                and math.isfinite(res["eval"]["cer"]))
+    emit(ev)
+    emit(ft)
+    return [ev, ft]
+
+
+def phase_synth(card):
+    """The Latin renderer (see the module docstring)."""
+    import tempfile
+
+    records = synth_fixture_gate(card)
+    with tempfile.TemporaryDirectory() as workdir:
+        records.append(synth_pretrain(card, workdir))
+        records += synth_entry_points(card, workdir)
+    launches = {r["run"]: r["launches"] for r in records if "run" in r}
+    failed = [r.get("run", r.get("mode")) for r in records if not r["ok"]]
+    if failed:
+        raise AssertionError(f"synth phase checks failed: {failed}")
+    return records, launches
+
+
 def phase_probe():
     """The probe entry point, in this process: its return code and the
     gather's launches during it."""
@@ -4180,6 +4451,11 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
+    synth_recs, synth_launches = phase_synth(card)
+    emit({"phase": "synth", "parts": [r.get("run", r.get("mode")) for r in synth_recs],
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
     rc, probe_launches = phase_probe()
     emit({"phase": "probe", "rc": rc, "launches": probe_launches,
           "seconds": time.perf_counter() - t0})
@@ -4226,7 +4502,8 @@ def main() -> int:
                              if not k.endswith("_float32") and not k.endswith("_fp32")},
                           **{k: v for k, v in backbone_launches.items()
                              if not k.endswith("_fp32")},
-                          **{k: v for k, v in arch_launches.items() if "fp32" not in k}},
+                          **{k: v for k, v in arch_launches.items() if "fp32" not in k},
+                          **synth_launches},
              "float32": {"read_fp32_forward": launches["float32"],
                          "sweep_fp32_90_points": sweep_launches["float32"],
                          "ctc_train_fp32_first_step": train_fp32,

@@ -12,6 +12,9 @@
 //     scans through the colour conversion, as libjpeg-turbo decodes them
 //     by default (data/images.py parses the headers and tables)
 //   - tiff_packbits_u8, tiff_lzw_u8: expand a TIFF strip (data/images.py)
+//   - resample_pass_u8, box_blur_pass_u8, alpha_composite_u8: PIL's 8-bit
+//     resampling pass, extended box-blur pass and alpha compositing
+//     (data/transforms.py, data/pil_draw.py; the synthetic canvas)
 //
 // Built with -ffp-contract=off: the multiply-adds that the JAX package's
 // build (-march=native) contracts into fused ones are written here as
@@ -702,6 +705,103 @@ int64_t tiff_lzw_u8(const uint8_t* src, int64_t n, uint8_t* out, int64_t cap) {
         if (next + 1 >= (1 << width) && width < 12) ++width;
     }
     return w;
+}
+
+// One pass of PIL's 8-bit resampler (Resample.c ImagingResample*_8bpc)
+// along axis 1 (columns) or 0 (rows) of uint8 (h, w, c): each output
+// pixel sums its taps (index, 22-bit fixed-point weight; a weight of 0
+// for unused taps), rounds and clips to 0..255.
+void resample_pass_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c, int64_t axis,
+                      const int64_t* index, const int64_t* weight, int64_t out_size,
+                      int64_t taps, uint8_t* dst) {
+    const int64_t half = int64_t(1) << 21;
+    auto clip = [](int64_t acc) -> uint8_t {
+        acc >>= 22;
+        return (uint8_t)(acc < 0 ? 0 : acc > 255 ? 255 : acc);
+    };
+    if (axis == 1) {
+        std::vector<int64_t> acc(c);
+        for (int64_t y = 0; y < h; ++y) {
+            const uint8_t* row = src + y * w * c;
+            uint8_t* out = dst + y * out_size * c;
+            for (int64_t x = 0; x < out_size; ++x) {
+                std::fill(acc.begin(), acc.end(), half);
+                for (int64_t t = 0; t < taps; ++t) {
+                    const int64_t wt = weight[x * taps + t];
+                    if (!wt) continue;
+                    const uint8_t* p = row + index[x * taps + t] * c;
+                    for (int64_t k = 0; k < c; ++k) acc[k] += wt * p[k];
+                }
+                for (int64_t k = 0; k < c; ++k) out[x * c + k] = clip(acc[k]);
+            }
+        }
+        return;
+    }
+    const int64_t n = w * c;
+    std::vector<int64_t> acc(n);
+    for (int64_t y = 0; y < out_size; ++y) {
+        std::fill(acc.begin(), acc.end(), half);
+        for (int64_t t = 0; t < taps; ++t) {
+            const int64_t wt = weight[y * taps + t];
+            if (!wt) continue;
+            const uint8_t* p = src + index[y * taps + t] * n;
+            for (int64_t i = 0; i < n; ++i) acc[i] += wt * p[i];
+        }
+        for (int64_t i = 0; i < n; ++i) dst[y * n + i] = clip(acc[i]);
+    }
+}
+
+// One extended box-blur pass (BoxBlur.c ImagingLineBoxBlur8) along axis 1
+// or 0 of uint8 (h, w, c): the 2r + 1 pixels around each at weight ww and
+// the two beyond at fw, edges repeated, 24-bit fixed point rounded (a
+// running sum over each line, exact in integers).
+void box_blur_pass_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c, int64_t axis,
+                      int64_t r, int64_t ww, int64_t fw, uint8_t* dst) {
+    const int64_t n = axis == 1 ? w : h;          // pixels along a line
+    const int64_t lines = axis == 1 ? h : w;
+    const int64_t step = axis == 1 ? c : w * c;   // bytes between neighbours
+    const int64_t pad = r + 1;
+    std::vector<int64_t> line(n + 2 * pad);
+    for (int64_t l = 0; l < lines; ++l)
+        for (int64_t k = 0; k < c; ++k) {
+            const int64_t base = (axis == 1 ? l * w * c : l * c) + k;
+            for (int64_t i = 0; i < n + 2 * pad; ++i) {
+                int64_t j = i - pad;
+                j = j < 0 ? 0 : j >= n ? n - 1 : j;
+                line[i] = src[base + j * step];
+            }
+            int64_t acc = 0;
+            for (int64_t d = -r; d <= r; ++d) acc += line[pad + d];
+            for (int64_t i = 0; i < n; ++i) {
+                const int64_t bulk = acc * ww + (line[pad + i - r - 1] + line[pad + i + r + 1]) * fw;
+                dst[base + i * step] = (uint8_t)((bulk + (int64_t(1) << 23)) >> 24);
+                acc += line[pad + i + r + 1] - line[pad + i - r];
+            }
+        }
+}
+
+// Image.alpha_composite of RGBA src over RGBA dst, n pixels
+// (AlphaComposite.c, 7 extra bits of precision), into out.
+void alpha_composite_u8(const uint8_t* dst, const uint8_t* src, int64_t n, uint8_t* out) {
+    for (int64_t p = 0; p < n; ++p) {
+        const uint8_t* d = dst + 4 * p;
+        const uint8_t* s = src + 4 * p;
+        uint8_t* o = out + 4 * p;
+        if (s[3] == 0) {
+            std::memcpy(o, d, 4);
+            continue;
+        }
+        const uint32_t blend = (uint32_t)d[3] * (255 - s[3]);
+        const uint32_t outa255 = (uint32_t)s[3] * 255 + blend;
+        const uint32_t coef1 = (uint32_t)s[3] * 255 * 255 * (1 << 7) / outa255;
+        const uint32_t coef2 = 255 * (1 << 7) - coef1;
+        for (int k = 0; k < 3; ++k) {
+            const uint32_t t = s[k] * coef1 + d[k] * coef2 + (0x80 << 7);
+            o[k] = (uint8_t)(((((t >> 8) + t) >> 8)) >> 7);
+        }
+        const uint32_t a = outa255 + 0x80;
+        o[3] = (uint8_t)(((a >> 8) + a) >> 8);
+    }
 }
 
 }  // extern "C"

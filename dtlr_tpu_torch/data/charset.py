@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "charsets")
 DEFAULT_CHARSET = "default_charset.json"
@@ -30,9 +30,12 @@ def load_charset_file(path: str) -> List[str]:
     return [chr(c) if isinstance(c, int) else c for c in charset]
 
 
-def resolve_synthetic_charset(sub: str) -> List[str]:
+def resolve_synthetic_charset(sub: str) -> Optional[List[str]]:
     """``no_accent`` is the 64-character set; ``no_accent_space`` adds
-    ' ' as class 64 (the flagship checkpoint's 65 classes)."""
+    ' ' as class 64 (the flagship checkpoint's 65 classes); ``default``
+    (or None, or empty) is None: the renderer's 166-character default."""
+    if sub in (None, "", "default"):
+        return None
     if sub == "no_accent":
         return load_charset()
     if sub == "no_accent_space":

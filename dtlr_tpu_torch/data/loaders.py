@@ -15,9 +15,9 @@ character boxes.
 ``NpzLines`` reads pre-rendered lines from an npz (uint8 ``images`` (N,
 H, W, 3) with ``valid_hw``, ``texts``, ``charset``, and optionally per
 line ``labels``, ``boxes`` normalized cxcywh and ``valid``).
-``HWDB_synth`` is the generated Chinese stream (data/hwdb_synth.py).
-``synthetic_line_OCR_general`` renders with PIL and fonts: its name is
-registered and raises, and such lines reach the port written to an npz.
+``HWDB_synth`` is the generated Chinese stream (data/hwdb_synth.py),
+``synthetic_line_OCR_general`` the rendered Latin stream
+(data/synthetic.py's ``SyntheticLineGenerator``, from the font bank).
 """
 
 from __future__ import annotations
@@ -30,12 +30,6 @@ import numpy as np
 
 from .charset import load_default_charset
 from .images import load_image
-
-#: the JAX package's datasets that the port cannot build, and why
-NEEDS_PIL = {
-    "synthetic_line_OCR_general": "renders its lines with PIL and fonts",
-}
-
 
 def permuted_latin_charset() -> List[str]:
     """The permuted charset of google1000 and the ciphers' smart mapping
@@ -269,8 +263,9 @@ def build_dataset(name: str, mode: str = "train", root: str = "./data", **kw):
     """The registry (reference datasets/__init__.py:17-47): the real
     datasets under ``root`` (``IAM`` takes ``image_folder=``), ``lines``
     reads an npz (``path=``), ``HWDB_synth`` is the generated Chinese
-    stream (``SyntheticHWDBGenerator``'s arguments); the renderer's name
-    raises."""
+    stream (``SyntheticHWDBGenerator``'s arguments),
+    ``synthetic_line_OCR_general`` the rendered Latin one
+    (``SyntheticLineGenerator``'s)."""
     if name == "IAM":
         return IAM(root, mode, **kw)
     if name == "READ":
@@ -289,10 +284,10 @@ def build_dataset(name: str, mode: str = "train", root: str = "./data", **kw):
         from .hwdb_synth import SyntheticHWDBGenerator
 
         return SyntheticHWDBGenerator(root=root, **kw)
-    if name in NEEDS_PIL:
-        raise NotImplementedError(
-            f"dataset {name!r} {NEEDS_PIL[name]}, which the port does not use: write its "
-            "lines to an npz and pass that instead")
+    if name == "synthetic_line_OCR_general":
+        from .synthetic import SyntheticLineGenerator
+
+        return SyntheticLineGenerator(**kw)
     raise ValueError(f"unknown dataset {name!r}")
 
 

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import math
 from fractions import Fraction
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -112,6 +113,7 @@ def _bicubic(x: float) -> float:
 _PIL_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_bicubic, 2.0)}
 
 
+@lru_cache(maxsize=256)
 def _pil_coefficients(in_size: int, out_size: int, kind: str = "bilinear"):
     """PIL's taps for one axis (Resample.c precompute_coeffs and
     normalize_coeffs_8bpc): source index and fixed-point weight per
@@ -150,10 +152,22 @@ def _pil_pass(x: torch.Tensor, axis: int, out_size: int, kind: str = "bilinear")
     return ((acc + (1 << (_PIL_PRECISION - 1))) >> _PIL_PRECISION).clamp(0, 255)
 
 
-def pil_resize(img: np.ndarray, out_h: int, out_w: int, kind: str = "bicubic") -> np.ndarray:
+def pil_resize(img: np.ndarray, out_h: int, out_w: int, kind: str = "bicubic",
+               native: bool = True) -> np.ndarray:
     """PIL's ``Image.fromarray(img).resize((out_w, out_h), filter)`` of a
     uint8 (H, W, C) array: the horizontal pass, then the vertical, each
-    skipped where the size stays."""
+    skipped where the size stays; each pass in the native runtime
+    (``runtime/native.py``'s ``resample_pass``), or with ``native=False``
+    in torch (the plain version it is held to)."""
+    if native:
+        from ..runtime import native as N
+
+        x = np.ascontiguousarray(img, np.uint8)
+        for axis, size in ((1, out_w), (0, out_h)):
+            if size != x.shape[axis]:
+                index, weight = _pil_coefficients(x.shape[axis], size, kind)
+                x = N.resample_pass(x, axis, index.numpy(), weight.numpy())
+        return x
     x = torch.from_numpy(np.array(img, np.int64))
     if out_w != x.shape[1]:
         x = _pil_pass(x, 1, out_w, kind)
@@ -459,9 +473,7 @@ def _box_blur_pass(x: torch.Tensor, radius: np.float32, axis: int) -> torch.Tens
     (BoxBlur.c ImagingLineBoxBlur*): the 2r + 1 pixels around each at
     weight ww and the two beyond at fw, edges repeated, 24-bit fixed
     point rounded to uint8."""
-    r = int(radius)
-    ww = int(np.float32(1 << 24) / np.float32(radius * np.float32(2) + np.float32(1)))
-    fw = ((1 << 24) - (r * 2 + 1) * ww) // 2
+    r, ww, fw = _box_blur_weights(radius)
     n = x.shape[axis]
     idx = torch.arange(n)
     near = (idx[:, None] + torch.arange(-r, r + 1)[None, :]).clamp(0, n - 1)  # (n, 2r+1)
@@ -472,12 +484,32 @@ def _box_blur_pass(x: torch.Tensor, radius: np.float32, axis: int) -> torch.Tens
     return ((bulk + (1 << 23)) >> 24).movedim(0, axis)
 
 
-def pil_gaussian_blur(img: np.ndarray, radius: float, passes: int = 3) -> np.ndarray:
+def _box_blur_weights(radius: np.float32):
+    """(r, ww, fw): the box's whole radius, its pixels' and the two edge
+    pixels' 24-bit weights (BoxBlur.c ImagingLineBoxBlur)."""
+    r = int(radius)
+    ww = int(np.float32(1 << 24) / np.float32(radius * np.float32(2) + np.float32(1)))
+    return r, ww, ((1 << 24) - (r * 2 + 1) * ww) // 2
+
+
+def pil_gaussian_blur(img: np.ndarray, radius: float, passes: int = 3,
+                      native: bool = True) -> np.ndarray:
     """PIL's ``Image.fromarray(img).filter(ImageFilter.GaussianBlur(radius))``
-    of a uint8 (H, W[, C]) array."""
+    of a uint8 (H, W[, C]) array (every band alike, RGBA's alpha too), the
+    passes in the native runtime, or with ``native=False`` in torch."""
     if radius == 0:
         return img.copy()
     box = _box_blur_radius(radius, passes)
+    if native:
+        from ..runtime import native as N
+
+        x = np.ascontiguousarray(img, np.uint8)
+        if box != 0:
+            r, ww, fw = _box_blur_weights(box)
+            for axis in (1, 0):
+                for _ in range(passes):
+                    x = N.box_blur_pass(x, axis, r, ww, fw)
+        return x.copy() if x is img else x
     x = torch.from_numpy(np.array(img, np.int64))
     if box != 0:
         for axis in (1, 0):

@@ -17,7 +17,13 @@ its images decoded by ``data/images.py``, its charset the one the model's
 class head must match), or ``HWDB_synth``, which draws ``--max_images``
 (default 64) Chinese lines from the glyph bank under
 ``--data_root``/HWDB_gnt, seeded 321 + ``--eval_seed``
-(dtlr_tpu/eval/evaluate.py:233-274). They are batched by the recipe's
+(dtlr_tpu/eval/evaluate.py:233-274), or ``synthetic`` /
+``synthetic_line_OCR_general``, which renders ``--max_images`` (default
+100) Latin lines from the font bank, seeded 123 + ``--eval_seed``, with
+the settings' ``synthetic_charset``, ``synthetic_max_words`` (default 8),
+``plain_background`` and the corpus file (``synthetic_corpus_val_file``,
+else ``synthetic_corpus_file``) at ``synthetic_corpus_prob`` (default
+0.5) (dtlr_tpu/eval/evaluate.py:194-220). They are batched by the recipe's
 ``BucketBatcher`` without augmentation. The
 settings (data, model geometry, compute dtype) are a config file's with
 ``--config`` (``dtlr_tpu_torch/configs/``, or a training run's dumped
@@ -56,13 +62,15 @@ import torch
 
 from .. import resolve_device
 from ..data.batching import make_batcher
-from ..data.charset import labels_to_text
+from ..data.charset import labels_to_text, resolve_synthetic_charset
+from ..data.corpus import read_corpus
 from ..data.hwdb_synth import hwdb_stream
 from ..data.loaders import NpzLines, build_dataset, eval_iter
+from ..data.synthetic import SyntheticLineGenerator
 from ..models.dino import FLAGSHIP, DINO, DinoConfig, build_dino
 from ..ops.pixels import prep_images
 from ..train import checkpoints as ckpt_lib
-from ..train.config import load_settings
+from ..train.config import load_settings, synth_defaults
 from ..train.torch_import import is_torch_checkpoint, load_params_file
 from ..weights import load_into, params_from_npz
 from . import metrics as M
@@ -377,12 +385,12 @@ def parse_args(argv=None):
     lines = p.add_mutually_exclusive_group(required=True)
     lines.add_argument("--lines", help="npz of pre-rendered lines")
     lines.add_argument("--dataset", help="IAM, READ, RIMES, HWDB, borg, copiale, google1000 "
-                                          "under --data_root, or HWDB_synth (lines from the "
-                                          "glyph bank)")
+                                          "under --data_root, HWDB_synth (lines from the "
+                                          "glyph bank), or synthetic (rendered Latin lines)")
     p.add_argument("--mode", default="test", choices=["val", "test", "valid"])
     p.add_argument("--data_root", default="./data")
     p.add_argument("--eval_seed", type=int, default=0,
-                   help="offset of the generated lines' seed (321)")
+                   help="offset of the generated lines' seed (321 HWDB_synth, 123 synthetic)")
     p.add_argument("--config", default=None,
                    help="config file, or a training run's config_cfg.py")
     p.add_argument("--ema", action="store_true", help="the train state's EMA weights")
@@ -412,6 +420,16 @@ def eval_lines(args, data_cfg):
     if args.lines is not None:
         ds = NpzLines(args.lines)
         return ds, ds.charset, ds.token_based, os.path.splitext(os.path.basename(args.lines))[0]
+    if args.dataset in ("synthetic", "synthetic_line_OCR_general"):
+        words, prob = synth_defaults(data_cfg, "evaluate")
+        path = data_cfg.synthetic_corpus_val_file or data_cfg.synthetic_corpus_file
+        gen = SyntheticLineGenerator(
+            charset=resolve_synthetic_charset(data_cfg.synthetic_charset),
+            seed=123 + args.eval_seed, max_words=words,
+            plain_background=data_cfg.plain_background,
+            corpus_lines=read_corpus(path) if path else None, corpus_prob=prob)
+        n = args.max_images if args.max_images > 0 else 100
+        return [gen.sample_dict() for _ in range(n)], gen.charset, False, args.dataset
     if args.dataset != "HWDB_synth":
         ds = build_dataset(args.dataset, args.mode, root=args.data_root)
         return ds, ds.charset, ds.token_based, args.dataset

@@ -29,8 +29,12 @@ The lines come from ``lines`` (an npz, as the evaluate CLI's
 ``--lines``), or from ``dataset`` (IAM, READ, RIMES, HWDB, borg, copiale,
 google1000) under ``data_root`` (default ``./data``), split ``mode``
 (default ``test``), as the JAX package builds it; ``dataset: synthetic``
-renders with PIL and fonts and raises with ``data/loaders.py``'s
-``NEEDS_PIL`` reason. ``dtlr_tpu_torch/ngram/smoke_words.yaml`` runs as
+renders ``num_images`` (default 200) Latin lines from the font bank,
+seeded 777, with ``synthetic_charset`` (the YAML's, else the model
+config's), the model config's ``synthetic_max_words`` (default 8) and
+``plain_background``, and ``eval_corpus``'s word windows for every line
+when it is given (dtlr_tpu/ngram/rescore.py:81-108).
+``dtlr_tpu_torch/ngram/smoke_words.yaml`` runs as
 it is, on the repository's own lines, weights and corpus. The
 weights are ``params`` where given, else the newest train state under
 ``ckpt_dir`` (``checkpoint``, else ``checkpoint_best_regular``, as JAX's
@@ -54,13 +58,15 @@ import torch
 
 from .. import resolve_device
 from ..data.batching import make_batcher
-from ..data.charset import labels_to_text
-from ..data.loaders import NEEDS_PIL, NpzLines, build_dataset, eval_iter
+from ..data.charset import labels_to_text, resolve_synthetic_charset
+from ..data.corpus import read_corpus
+from ..data.loaders import NpzLines, build_dataset, eval_iter
+from ..data.synthetic import SyntheticLineGenerator
 from ..eval.decode import greedy_decode, greedy_labels
 from ..eval.evaluate import forward_batches, load_weights, model_from_tree
 from ..eval.metrics import corpus_cer
 from ..ops.ctc import blank_synthesis
-from ..train.config import load_settings
+from ..train.config import load_settings, synth_defaults
 from .lm_decode import CharNgramLM, LexiconTrie, rescore_line
 
 
@@ -88,16 +94,33 @@ def load_yaml(path: str) -> dict:
     return out
 
 
-def open_lines(ycfg: dict):
+class SampleList(list):
+    """Generated sample dicts with their charset."""
+
+    def __init__(self, samples, charset):
+        super().__init__(samples)
+        self.charset = charset
+
+
+def open_lines(ycfg: dict, data_cfg=None):
     """The config's lines: ``lines`` (an npz), else ``dataset`` under
-    ``data_root``, split ``mode``."""
+    ``data_root``, split ``mode``, or the rendered ``synthetic`` set under
+    ``data_cfg`` (default: the settings of ``model_config``)."""
     if ycfg.get("lines"):
         return NpzLines(ycfg["lines"])
     name = ycfg.get("dataset")
-    if name == "synthetic":
-        raise NotImplementedError(
-            f"dataset 'synthetic' {NEEDS_PIL['synthetic_line_OCR_general']}, which the port "
-            "does not use: write the lines to an npz and pass it as 'lines:'")
+    if name in ("synthetic", "synthetic_line_OCR_general"):
+        if data_cfg is None:
+            data_cfg = load_settings(ycfg.get("model_config"), None, "ctc")[0]
+        gen = SyntheticLineGenerator(
+            charset=resolve_synthetic_charset(
+                ycfg.get("synthetic_charset", data_cfg.synthetic_charset)),
+            seed=777, max_words=synth_defaults(data_cfg, "evaluate")[0],
+            plain_background=data_cfg.plain_background,
+            corpus_lines=read_corpus(ycfg["eval_corpus"]) if ycfg.get("eval_corpus") else None,
+            corpus_prob=1.0)
+        n = int(ycfg.get("num_images", 200))
+        return SampleList([gen.sample_dict() for _ in range(n)], gen.charset)
     return build_dataset(name, ycfg.get("mode", "test"), root=ycfg.get("data_root", "./data"))
 
 
@@ -129,9 +152,9 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    ds = open_lines(ycfg)
-    charset = ds.charset
     data_cfg, model_cfg, _, _ = load_settings(ycfg.get("model_config"), None, "ctc")
+    ds = open_lines(ycfg, data_cfg)
+    charset = ds.charset
     if args.compute_dtype is not None:
         model_cfg = dataclasses.replace(model_cfg, compute_dtype=args.compute_dtype)
     data_cfg = dataclasses.replace(data_cfg, batch_size=int(ycfg.get("batch_size", 8)))

@@ -6,7 +6,9 @@ The library is built with the host's C++ compiler on first use
 compiler's output: there is no fallback. The plain versions that the
 tests hold these against stay beside their callers:
 ``eval/metrics.py`` (``levenshtein_plain``, ``edit_operations_plain``),
-``data/transforms.py`` (``_upscale``), ``data/batching.py``
+``data/transforms.py`` (``_upscale``, ``pil_resize``'s and
+``pil_gaussian_blur``'s passes with ``native=False``), ``data/pil_draw.py``
+(``alpha_composite_plain``), ``data/batching.py``
 (``normalize_plain``) and ``data/images.py`` (``png_unfilter_plain``,
 ``jpeg_decode_plain``, ``lzw_decode_plain``, ``packbits_decode_plain``).
 """
@@ -35,6 +37,9 @@ _SIGNATURES = {
     "png_unfilter_u8": (_i64, [_p, _i64, _i64, _i64, _p]),
     "tiff_packbits_u8": (_i64, [_p, _i64, _p, _i64]),
     "tiff_lzw_u8": (_i64, [_p, _i64, _p, _i64]),
+    "resample_pass_u8": (None, [_p, _i64, _i64, _i64, _i64, _p, _p, _i64, _i64, _p]),
+    "box_blur_pass_u8": (None, [_p, _i64, _i64, _i64, _i64, _i64, _i64, _i64, _p]),
+    "alpha_composite_u8": (None, [_p, _p, _i64, _p]),
     "jpeg_decode_huffman": (ctypes.c_int, [_p, _i64, _i64, _i64, _i64, _p, _p, _i64, _p, _p,
                                            _i64, _i64, _p, ctypes.c_char_p, _i64]),
 }
@@ -114,6 +119,45 @@ def normalize_into(src: np.ndarray, dst: np.ndarray) -> None:
     if h > H or w > W:
         raise ValueError(f"{s.shape} does not fit in {dst.shape}")
     library().normalize_into_f32(_ptr(s), h, w, _ptr(dst), H, W, _ptr(_MEAN), _ptr(_STD))
+
+
+def _hwc_u8(img: np.ndarray) -> np.ndarray:
+    a = np.ascontiguousarray(img, np.uint8)
+    return a if a.ndim == 3 else a[..., None]
+
+
+def resample_pass(img: np.ndarray, axis: int, index: np.ndarray, weight: np.ndarray) -> np.ndarray:
+    """One pass of PIL's 8-bit resampler over uint8 (H, W[, C]) along
+    ``axis`` with ``transforms._pil_coefficients``' taps (out_size, taps)."""
+    src = _hwc_u8(img)
+    h, w, c = src.shape
+    index = np.ascontiguousarray(index, np.int64)
+    weight = np.ascontiguousarray(weight, np.int64)
+    out_size, taps = index.shape
+    dst = np.empty((out_size, w, c) if axis == 0 else (h, out_size, c), np.uint8)
+    library().resample_pass_u8(_ptr(src), h, w, c, axis, _ptr(index), _ptr(weight), out_size,
+                               taps, _ptr(dst))
+    return dst.reshape(dst.shape[:2] + img.shape[2:])
+
+
+def box_blur_pass(img: np.ndarray, axis: int, r: int, ww: int, fw: int) -> np.ndarray:
+    """One extended box-blur pass over uint8 (H, W[, C]) along ``axis``."""
+    src = _hwc_u8(img)
+    h, w, c = src.shape
+    dst = np.empty_like(src)
+    library().box_blur_pass_u8(_ptr(src), h, w, c, axis, r, ww, fw, _ptr(dst))
+    return dst.reshape(img.shape)
+
+
+def alpha_composite(dst: np.ndarray, src: np.ndarray) -> np.ndarray:
+    """``Image.alpha_composite`` of two RGBA (H, W, 4) uint8 images."""
+    d = np.ascontiguousarray(dst, np.uint8)
+    s = np.ascontiguousarray(src, np.uint8)
+    if d.shape != s.shape or d.shape[-1] != 4:
+        raise ValueError(f"alpha_composite of {s.shape} over {d.shape}")
+    out = np.empty_like(d)
+    library().alpha_composite_u8(_ptr(d), _ptr(s), d.size // 4, _ptr(out))
+    return out
 
 
 def png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:

@@ -47,6 +47,22 @@ class DataConfig:
     # (else the glyph bank's characters) and the glyphs per line
     hwdb_charset_pickle: Optional[str] = None
     hwdb_glyphs_per_line: Optional[Tuple[int, ...]] = None
+    # the Latin renderer's streams (data/synthetic.py; the keys of
+    # dtlr_tpu/train/pretrain.py:103-173, finetune.py:90-160,
+    # eval/evaluate.py:194-220): None where the JAX entry points default
+    # differently (``synth_defaults``)
+    plain_background: bool = False
+    synthetic_max_words: Optional[int] = None
+    synthetic_charset: str = "default"
+    synthetic_background_dir: Optional[str] = None
+    synthetic_font_dict: Optional[str] = None
+    synthetic_font_root: str = ""
+    synthetic_corpus_dir: Optional[str] = None
+    synthetic_language: str = "en"
+    synthetic_reference_text: bool = False
+    synthetic_corpus_file: Optional[str] = None
+    synthetic_corpus_val_file: Optional[str] = None
+    synthetic_corpus_prob: Optional[float] = None
 
 
 @dataclass
@@ -178,7 +194,12 @@ _NOT_IN_FINETUNE = ("synthetic_reuse", "truly_random_erasing")
 JAX_DEFAULTS = {
     "max_targets": 256, "image_w_max": 1344, "image_h_max": None, "transfer_uint8": False,
     "truly_random_erasing": False, "synthetic_reuse": 1, "hwdb_charset_pickle": None,
-    "hwdb_glyphs_per_line": None, "steps_per_epoch": 1250, "warmup_steps": 0,
+    "hwdb_glyphs_per_line": None, "plain_background": False, "synthetic_max_words": None,
+    "synthetic_charset": "default", "synthetic_background_dir": None,
+    "synthetic_font_dict": None, "synthetic_font_root": "", "synthetic_corpus_dir": None,
+    "synthetic_language": "en", "synthetic_reference_text": False,
+    "synthetic_corpus_file": None, "synthetic_corpus_val_file": None,
+    "synthetic_corpus_prob": None, "steps_per_epoch": 1250, "warmup_steps": 0,
     "onecyclelr": False, "multi_step_lr": False, "lr_drop_list": (33, 45),
     "weight_decay": 1e-4, "clip_max_norm": 0.1, "use_ema": False, "ema_decay": 0.9997,
     "matcher_impl": "jax", "set_cost_class": 2.0, "set_cost_bbox": 5.0, "set_cost_giou": 2.0,
@@ -294,6 +315,25 @@ def from_config(cfg, kind: str):
     train = train_cls(**values(train_cls, _NOT_IN_FINETUNE if kind == "ctc" else ()))
     model = DinoConfig(**values(DinoConfig))
     return train, model, sorted(set(cfg) - read)
+
+
+#: the renderer's keys (``DataConfig``'s fields of the same names)
+SYNTH_KEYS = ("plain_background", "synthetic_max_words", "synthetic_charset",
+              "synthetic_background_dir", "synthetic_font_dict", "synthetic_font_root",
+              "synthetic_corpus_dir", "synthetic_language", "synthetic_reference_text",
+              "synthetic_corpus_file", "synthetic_corpus_val_file", "synthetic_corpus_prob")
+#: the JAX entry points' defaults of the renderer's keys that differ:
+#: (synthetic_max_words, synthetic_corpus_prob)
+SYNTH_DEFAULTS = {"pretrain": (30, 0.5), "finetune": (8, 0.7), "evaluate": (8, 0.5)}
+
+
+def synth_defaults(cfg, entry: str):
+    """(max words, corpus probability) of ``cfg`` (a ``DataConfig``) for
+    the JAX entry point ``entry``, its own defaults where the keys are
+    absent."""
+    words, prob = SYNTH_DEFAULTS[entry]
+    return (words if cfg.synthetic_max_words is None else cfg.synthetic_max_words,
+            prob if cfg.synthetic_corpus_prob is None else cfg.synthetic_corpus_prob)
 
 
 def labelbook_offset(cfg) -> int:

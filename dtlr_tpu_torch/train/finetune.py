@@ -33,7 +33,16 @@ held out (dtlr_tpu/train/finetune.py:194-200). ``--dataset_file
 HWDB_synth`` composes Chinese lines from the
 glyph bank under ``--data_root``/HWDB_gnt, the training stream seeded by
 ``--seed`` and ``eval_set_size`` held-out lines by ``--seed`` + 999
-(dtlr_tpu/train/finetune.py:171-204); ``--lines`` is an npz of
+(dtlr_tpu/train/finetune.py:171-204). ``--dataset_file synthetic`` (or
+``synthetic_line_OCR_general``) renders Latin lines from the font bank
+(dtlr_tpu/train/finetune.py:90-160): the settings' ``synthetic_charset``
+(``no_accent`` gives the 64-character target whose class-head surgery
+``--new_class_embedding`` makes), at most ``synthetic_max_words`` words
+(default 8), ``plain_background``, and ``synthetic_corpus_file``'s word
+windows at ``synthetic_corpus_prob`` (default 0.7; the held-out stream
+reads ``synthetic_corpus_val_file`` when it is given); the training
+stream seeded by ``--seed``, 64 held-out lines drawn first by ``--seed``
++ 999. ``--lines`` is an npz of
 pre-rendered lines (``data/loaders.py``'s ``NpzLines``: uint8 ``images``,
 ``valid_hw``, ``texts``, ``charset``), reshuffled from ``default_rng(0)``,
 with ``--val_lines`` (default: the same file) held out. Training lines
@@ -61,12 +70,14 @@ import os
 import torch
 
 from ..data.batching import make_batcher
-from ..data.charset import load_charset_file, load_default_charset
+from ..data.charset import load_charset_file, load_default_charset, resolve_synthetic_charset
+from ..data.corpus import read_corpus
 from ..data.hwdb_synth import hwdb_stream
 from ..data.loaders import NpzLines, build_dataset, dataset_iter, eval_iter
+from ..data.synthetic import SyntheticLineGenerator
 from ..parallel import mesh
 from . import checkpoints as ckpt_lib
-from .config import dump_run_config, labelbook_offset, load_settings
+from .config import dump_run_config, labelbook_offset, load_settings, synth_defaults
 from .engine import Trainer
 from .init import init_params
 from .torch_import import is_torch_checkpoint, load_params_file
@@ -81,7 +92,7 @@ def parse_args(argv=None):
                    help="config file (default: the finetune recipe, RECIPE)")
     p.add_argument("--dataset_file", default=None,
                    help="IAM, READ, RIMES, HWDB, borg, copiale, google1000 under --data_root, "
-                        "or HWDB_synth; or pass --lines")
+                        "HWDB_synth, or synthetic (rendered Latin lines); or pass --lines")
     p.add_argument("--data_root", default="./data")
     p.add_argument("--lines", default=None, help="npz of pre-rendered training lines")
     p.add_argument("--val_lines", default=None, help="npz of validation lines (default --lines)")
@@ -114,6 +125,18 @@ def line_sources(args, cfg):
         val = hwdb_stream(args.data_root, args.seed + 999, cfg.hwdb_charset_pickle,
                           cfg.hwdb_glyphs_per_line)
         return train.charset, iter(train), [val.sample() for _ in range(cfg.eval_set_size)]
+    if args.dataset_file in ("synthetic", "synthetic_line_OCR_general"):
+        target = resolve_synthetic_charset(cfg.synthetic_charset)
+        max_words, prob = synth_defaults(cfg, "finetune")
+        c_train = read_corpus(cfg.synthetic_corpus_file) if cfg.synthetic_corpus_file else None
+        c_val = (read_corpus(cfg.synthetic_corpus_val_file)
+                 if cfg.synthetic_corpus_val_file else None) or c_train
+        kw = dict(charset=target, max_words=max_words, plain_background=cfg.plain_background,
+                  corpus_prob=prob)
+        train = SyntheticLineGenerator(seed=args.seed, corpus_lines=c_train, **kw)
+        val = SyntheticLineGenerator(seed=args.seed + 999, corpus_lines=c_val, **kw)
+        held_out = [val.sample_dict() for _ in range(64)]
+        return train.charset, iter(train), held_out
     if args.dataset_file is not None:
         train_ds = build_dataset(args.dataset_file, "train", root=args.data_root)
         val_ds = build_dataset(args.dataset_file, "val", root=args.data_root)

@@ -22,12 +22,19 @@ are listed in the run's log. Without ``-c`` the settings are the
 flagship recipe's (``RECIPE_DETECTION`` and ``FLAGSHIP``) and
 ``--options`` overrides their fields.
 
-Lines: ``--dataset_file HWDB_synth`` composes Chinese lines from the GNT
-glyph bank under ``--data_root``/HWDB_gnt (data/hwdb_synth.py), the
-training stream seeded by ``--train_seed`` (default ``--seed``), the
-held-out stream by ``--seed`` + 1; ``--lines`` reads pre-rendered lines
-with character boxes from an npz (``data/loaders.py``'s ``NpzLines``;
-the Latin renderer needs PIL and fonts and is not ported), reshuffled
+Lines: ``--dataset_file synthetic_line_OCR_general`` renders Latin lines
+from the font bank (data/synthetic.py) with the settings' renderer keys
+(``synth_kw``, dtlr_tpu/train/pretrain.py:103-173: the charset, at most
+``synthetic_max_words`` words (default 30), plain or canvas backgrounds,
+a background directory, a font dictionary, a wikitext directory, the
+reference's text mode, and a corpus file's word windows at
+``synthetic_corpus_prob``); ``--dataset_file HWDB_synth`` composes
+Chinese lines from the GNT glyph bank under ``--data_root``/HWDB_gnt
+(data/hwdb_synth.py). Either way the training stream is seeded by
+``--train_seed`` (default ``--seed``), the held-out stream by ``--seed``
++ 1, and the held-out lines are drawn first (which builds the canvas's
+shared background pool). ``--lines`` reads pre-rendered lines
+with character boxes from an npz (``data/loaders.py``'s ``NpzLines``), reshuffled
 from ``default_rng(0)``, the held-out lines in order from ``--val_lines``
 (default the same file). ``--dataset_file`` with a real dataset's name
 (IAM, READ, RIMES, HWDB, borg, copiale, google1000) builds its ``train``
@@ -76,15 +83,20 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from .. import set_deterministic
 from ..data.batching import make_batcher
+from ..data.canvas import set_background_dir
+from ..data.charset import resolve_synthetic_charset
+from ..data.corpus import CorpusSampler, read_corpus
+from ..data.fonts import FontSampler
 from ..data.hwdb_synth import hwdb_stream
 from ..data.loaders import REAL_DATASETS, NpzLines, build_dataset, dataset_iter, eval_iter
 from ..parallel import mesh
 from . import checkpoints as ckpt_lib
-from .config import dump_run_config, labelbook_offset, load_settings
+from .config import dump_run_config, labelbook_offset, load_settings, synth_defaults
 from .engine import Trainer
 from .init import init_params
 from .torch_import import load_params_file, merge_params_file
@@ -95,7 +107,8 @@ def parse_args(argv=None):
     p.add_argument("-c", "--config_file", default=None,
                    help="config file (default: the flagship recipe, RECIPE_DETECTION)")
     p.add_argument("--dataset_file", default=None,
-                   help="HWDB_synth, or a real dataset's name for --eval; or pass --lines")
+                   help="synthetic_line_OCR_general, HWDB_synth, or a real dataset's name "
+                        "for --eval; or pass --lines")
     p.add_argument("--data_root", default="./data")
     p.add_argument("--lines", default=None, help="npz of pre-rendered lines with boxes")
     p.add_argument("--val_lines", default=None, help="npz of held-out lines (default --lines)")
@@ -144,10 +157,41 @@ def effective_deadline(args) -> float:
     return args.deadline
 
 
+def synth_kw(cfg, mode: str, seed: int) -> dict:
+    """``SyntheticLineGenerator``'s arguments for a stream of ``mode`` from
+    the settings' renderer keys (dtlr_tpu/train/pretrain.py:115-171)."""
+    max_words, corpus_prob = synth_defaults(cfg, "pretrain")
+    kw = dict(plain_background=cfg.plain_background, max_words=max_words, seed=seed)
+    restricted = resolve_synthetic_charset(cfg.synthetic_charset)
+    if restricted is not None:
+        kw["charset"] = restricted
+    if cfg.synthetic_font_dict:
+        kw["font_sampler"] = FontSampler.from_reference_json(
+            cfg.synthetic_font_dict, font_root=cfg.synthetic_font_root,
+            rng=np.random.default_rng(seed + 13))
+    if cfg.synthetic_corpus_dir:
+        kw["corpus_sampler"] = CorpusSampler.from_dir(
+            cfg.synthetic_corpus_dir, language=cfg.synthetic_language, mode=mode,
+            rng=np.random.default_rng(seed + 17))
+    kw["reference_text_mode"] = cfg.synthetic_reference_text
+    c_train, c_val = cfg.synthetic_corpus_file, cfg.synthetic_corpus_val_file
+    path = c_val if ("val" in mode and c_val) else c_train
+    if path:
+        kw["corpus_lines"] = read_corpus(path)
+        kw["corpus_prob"] = corpus_prob
+    return kw
+
+
 def line_sources(args, cfg, train_seed: int):
     """The charset, the training stream and the held-out stream."""
     if args.lines and args.dataset_file:
         raise ValueError("pass --lines or --dataset_file, not both")
+    if args.dataset_file == "synthetic_line_OCR_general":
+        if cfg.synthetic_background_dir:
+            set_background_dir(cfg.synthetic_background_dir)
+        train = build_dataset(args.dataset_file, "train", **synth_kw(cfg, "train", train_seed))
+        val = build_dataset(args.dataset_file, "val", **synth_kw(cfg, "val", args.seed + 1))
+        return train.charset, iter(train), iter(val)
     if args.dataset_file == "HWDB_synth":
         train = hwdb_stream(args.data_root, train_seed, cfg.hwdb_charset_pickle,
                             cfg.hwdb_glyphs_per_line)

@@ -189,9 +189,8 @@ def test_token_charset_and_registry(tmp_path):
              texts=np.asarray(["ab c ab"]), charset=np.asarray(["ab", "c"]))
     ds = TL.build_dataset("lines", path=str(path))
     assert ds.token_based and ds[0]["labels"].tolist() == [0, 1, 0]
-    for name in TL.NEEDS_PIL:
-        with pytest.raises(NotImplementedError, match="PIL"):
-            TL.build_dataset(name, "train")
+    renderer = TL.build_dataset("synthetic_line_OCR_general", "train")
+    assert renderer.charset == JL.load_default_charset()
     with pytest.raises(ValueError):
         TL.build_dataset("nope", "train")
     gt = {"train": [{"id": 1, "text": "a"}], "valid": {3: "b", 4: {"text": "c"}}}

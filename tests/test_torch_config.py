@@ -122,11 +122,18 @@ def test_flagship_recipe_from_its_config_file():
     cfg = TL.apply_options(TL.load_config(port_path("Latin_TPU.py")), TL.parse_options(ROUND4))
     cfg.epochs, cfg.steps_per_epoch = 400, 500
     train, model, unread = TC.from_config(cfg, "pretrain")
+    # the renderer's keys describe the run's stream, not the recipe: read
+    # from the config as they are
+    assert {k: getattr(train, k) for k in TC.SYNTH_KEYS} == {
+        k: cfg[k] if k in cfg else getattr(TC.RECIPE_DETECTION, k) for k in TC.SYNTH_KEYS}
+    assert (train.synthetic_max_words, train.synthetic_corpus_prob) == (5, 0.5)
+    train = dataclasses.replace(train, **{k: getattr(TC.RECIPE_DETECTION, k)
+                                          for k in TC.SYNTH_KEYS})
     for f in dataclasses.fields(train):
         assert getattr(train, f.name) == getattr(TC.RECIPE_DETECTION, f.name), f.name
     assert train == TC.RECIPE_DETECTION and model == FLAGSHIP
-    assert {"compilation_cache_dir", "rss_restart_gb", "synthetic_corpus_file",
-            "query_dim"} <= set(unread)
+    assert {"compilation_cache_dir", "rss_restart_gb", "query_dim"} <= set(unread)
+    assert not set(unread) & set(TC.SYNTH_KEYS)
     assert not set(unread) & {"lr", "batch_size", "use_ema", "dn_labelbook_size",
                               "num_classes", "encoder_type", "max_targets", "synthetic_reuse",
                               "deform_shared_offsets", "enc_n_points", "batch_norm_type"}
@@ -139,6 +146,10 @@ def test_finetune_recipe_from_its_dumped_config():
     shipped Latin checkpoints, is the port's RECIPE."""
     cfg = TL.load_config(os.path.join(REPO, "outputs/finetune_r4b/config_cfg.py"))
     train, model, unread = TC.from_config(cfg, "ctc")
+    assert {k: getattr(train, k) for k in TC.SYNTH_KEYS} == {
+        k: cfg[k] if k in cfg else getattr(TC.RECIPE, k) for k in TC.SYNTH_KEYS}
+    assert train.synthetic_charset == "no_accent_space"
+    train = dataclasses.replace(train, **{k: getattr(TC.RECIPE, k) for k in TC.SYNTH_KEYS})
     assert train == TC.RECIPE
     assert dataclasses.replace(model, use_dn=True) == FLAGSHIP
     # the finetune passes no reuse pool and no erasing to its batcher

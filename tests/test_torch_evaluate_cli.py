@@ -20,6 +20,10 @@ eval forward is deterministic. JAX's batchers are recorded and stopped.
   ``--config`` (Chinese_TPU.py and scripts/hwdb_real.sh's options), in
   the ``chinese`` metric mode at hwdb_real.sh's point: the same records
   and files, exactly.
+- ``test_rendered_eval_set``: as (a), on the Latin lines that both CLIs
+  render (``--dataset synthetic``, seed 123 + ``--eval_seed``, JAX's
+  generator given the banked faces): the same batches reach the forward,
+  and the records and files are the same, exactly.
 - (b) ``test_cli_end_to_end_tiny``: the CLI end to end at ``TINY`` on
   weights exported from the JAX model, over the lines JAX's synthetic
   eval set draws (seed 123), written to an npz as ``synthetic_lines``
@@ -294,6 +298,54 @@ def test_hwdb_stream_with_a_runs_config(monkeypatch, tmp_path, capsys, eval_seed
     assert models == [model_cfg]  # the run's geometry and bfloat16
     assert read_files(tmp_path / "run" / "stats_dect" / "HWDB_synth") == read_files(
         tmp_path / "jax" / "stats_dect" / "HWDB_synth")
+
+
+def test_rendered_eval_set(monkeypatch, tmp_path, capsys):
+    """``--dataset synthetic``: both CLIs render the eval set (seed 123 +
+    ``--eval_seed``, the config's renderer keys; JAX's generator given the
+    banked faces) and batch it: the same batches reach the forward, and
+    the records and files are JAX's, exactly."""
+    from dtlr_tpu.data import synthetic as jax_synthetic
+    from test_torch_pretrain import empty_pools
+    from test_torch_synth_fixture import mpl_faces
+
+    n = 166
+    corpus = os.path.join(REPO, "artifacts", "corpus_words_val.txt")
+    cfg = jax_config(tmp_path / "cfg.py", [64], 512, 512, n,
+                     f"synthetic_max_words = 3\nsynthetic_corpus_val_file = {corpus!r}\n")
+    forward, seen = seeded_forward(n), {"jax": [], "port": []}
+
+    def recorded(who):
+        def f(images, valid_hw):
+            seen[who].append(image_key(images))
+            return forward(images, valid_hw)
+        return f
+
+    common = ["--dataset", "synthetic", "--TH", "0.2", "--NMS", "0.5", "--max_images", "6",
+              "--batch_size", "2", "--eval_seed", "1"]
+    monkeypatch.setattr(jax_synthetic, "discover_fonts", mpl_faces)
+    empty_pools()
+    want_records, _ = run_jax_evaluate(
+        monkeypatch, recorded("jax"), ["--mode", "val", "--config", cfg, "--ckpt_dir",
+                                       str(tmp_path / "jax"), *common])
+    jax_printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    monkeypatch.setattr(TE, "load_weights", lambda *a: {
+        "params/class_embed/fc/kernel": np.zeros((1, n), np.float32)})
+    monkeypatch.setattr(TE, "model_from_tree", lambda *a, **kw: None)
+    monkeypatch.setattr(TE, "forward_lines", port_forward_from(recorded("port")))
+    empty_pools()
+    res = TE.main(["--params", str(tmp_path / "unused.npz"), "--out_dir",
+                   str(tmp_path / "port"), "--device", "cpu", *common, "--options",
+                   "data_aug_scales=64", "data_aug_max_size=512", "image_w_max=512",
+                   "image_h_max=none", "max_targets=64", "synthetic_max_words=3",
+                   f"synthetic_corpus_val_file={corpus}"])
+    port_printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(seen["port"]) == 3 and seen["port"] == seen["jax"]
+    assert res["records"] == want_records and len(want_records) == 1
+    assert port_printed == jax_printed and res["lines"] == 6
+    assert read_files(tmp_path / "port") == read_files(tmp_path / "jax" / "stats_dect" /
+                                                         "synthetic")
 
 
 # ----------------------------------------------------------------- (b)

@@ -4,7 +4,9 @@ dtlr_tpu_torch.train.finetune``) on the CPU at the tiny geometry
 optimizer and an evaluation, then a stage-2 run that resumes it with
 the full-model optimizer; a run from scratch (the fresh initialization)
 with the training CER; a run from a port pretraining run's directory;
-and a config file's run on the HWDB stream. Lines: 128x256 crops of the
+a config file's run on the HWDB stream; and the rendered Latin stream
+(``--dataset_file synthetic``), whose first batches are JAX's and whose
+first CTC loss is JAX's within 1e-5. Lines: 128x256 crops of the
 committed fixture lines. What is checked is the plumbing (the files each
 stage writes, the steps it counts, which parameters each optimizer
 moves, where the weights start), not the numbers, which
@@ -175,3 +177,90 @@ def test_config_file_on_the_hwdb_stream(tmp_path):
     cfg = load_config(str(out / "config_cfg.py"))
     assert (cfg.num_classes, cfg.dn_labelbook_size, cfg.lr) == (n, n, 1e-5)
     assert "compilation_cache_dir" in (out / "info.txt").read_text()
+
+
+def test_rendered_stream_batches_and_first_loss_match_jax(tmp_path, monkeypatch):
+    """``--dataset_file synthetic`` with -c Latin_CTC_TPU.py on the
+    no-accent charset, from a 166-class snapshot through the class-head
+    surgery: the first two training batches are JAX's entry point's (its
+    generators given the banked faces, the 64 held-out lines drawn
+    first), and the first step's CTC loss is JAX's on the same weights
+    and batch within test_torch_train_step.py's 1e-5."""
+    import dataclasses
+
+    import jax
+
+    from dtlr_tpu.config import load_config as jax_load_config
+    from dtlr_tpu.config import parse_options as jax_parse_options
+    from dtlr_tpu.config.loader import apply_options as jax_apply_options
+    from dtlr_tpu.models.dino import build_dino_from_config
+    from dtlr_tpu.ops.ctc import ctc_loss as jax_ctc_loss
+    from dtlr_tpu.ops.pixels import prep_images as jax_prep_images
+    from dtlr_tpu.train.checkpoints import load_params_npz as jax_load_params
+    from dtlr_tpu_torch.models.dino import build_dino
+    from dtlr_tpu_torch.train import engine
+    from dtlr_tpu_torch.weights import params_from_npz
+    from test_torch_pretrain import SYNTH_KEYS, empty_pools, jax_rendered_batches
+    from test_torch_smoke_fixture import PARAMS
+    from test_torch_train_step import LOSS_REL
+
+    torch.manual_seed(0)
+    model = build_dino(dataclasses.replace(TINY, dn_labelbook_size=167), 166, device="cpu")
+    trunk = ckpt.params_to_flax(dict(model.named_parameters()))
+    # the flagship's trained ResNet-50 (random weights at 64x128 leave the
+    # two packages' outputs 1e-4 apart, test_torch_grad_stops.py)
+    trained = params_from_npz(PARAMS)
+    trunk = {k: trained[k].astype(np.float32) if "/backbone_net/" in k else v
+             for k, v in trunk.items()}
+    np.savez(tmp_path / "trunk.npz", **trunk)
+    options = [*OPTIONS, "max_iterations=2", *SMALL, "synthetic_charset=no_accent",
+               *SYNTH_KEYS]
+    common = ["--dataset_file", "synthetic", "--pretrain_dir", str(tmp_path / "trunk.npz"),
+              "--new_class_embedding", "--smart_mapping", "--seed", "3", "--epochs", "1"]
+    want = jax_rendered_batches(monkeypatch, [
+        "dtlr_tpu.train.finetune", "-c", "dtlr_tpu/configs/Latin_CTC_TPU.py",
+        "--output_dir", str(tmp_path / "jax"), *common, "--options", *options])
+
+    seen, first = [], {}
+    step = engine.Trainer.step
+
+    def spy(self, batch, mark=None):
+        arrays = {k: np.asarray(v) for k, v in engine.batch_to_arrays(batch).items()
+                  if k in ("images", "valid_hw", "labels", "valid")}
+        if not seen:
+            first["params"] = {k: np.array(v) for k, v in ckpt.params_to_flax(
+                dict(self.state.model.named_parameters())).items()}
+            first["cfg"] = self.cfg
+        seen.append(arrays)
+        metrics = step(self, batch, mark)
+        first.setdefault("loss", float(metrics["loss"]))
+        return metrics
+
+    monkeypatch.setattr(engine.Trainer, "step", spy)
+    empty_pools()
+    res = finetune.main(["-c", "dtlr_tpu_torch/configs/Latin_CTC_TPU.py", "--output_dir",
+                         str(tmp_path / "port"), "--device", "cpu", *common, "--options",
+                         *options])
+    assert res["train"]["iterations"] == 2 and len(seen) == 2
+    for got, w in zip(seen, want):
+        for k in ("images", "valid_hw", "labels", "valid"):
+            np.testing.assert_array_equal(got[k], np.asarray(w[k]), err_msg=k)
+
+    params, cfg = first["params"], first["cfg"]
+    n = params["params/class_embed/fc/kernel"].shape[-1]
+    assert n == 64
+    np.savez(tmp_path / "first.npz", **params)
+    jcfg = jax_apply_options(jax_load_config("dtlr_tpu/configs/Latin_CTC_TPU.py"),
+                             jax_parse_options(options))
+    jcfg.num_classes, jcfg.dn_labelbook_size = n, params["params/label_enc"].shape[0] - 1
+    jax_model = build_dino_from_config(jcfg)
+    b = seen[0]
+
+    def loss(p):
+        out = jax_model.apply(p, jax_prep_images(b["images"], b["valid_hw"]), b["valid_hw"],
+                              None, train=True, rngs={"dropout": jax.random.PRNGKey(0)})
+        return cfg.CTC_loss_coef * jax_ctc_loss(out["pred_logits"], out["pred_boxes"],
+                                                b["labels"], b["valid"], eps=cfg.ctc_eps)[0]
+
+    jloss = float(jax.jit(loss)(jax_load_params(str(tmp_path / "first.npz"))))
+    assert abs(first["loss"] - jloss) <= LOSS_REL * abs(jloss), (first["loss"], jloss)

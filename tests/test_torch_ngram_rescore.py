@@ -25,9 +25,11 @@ a 5-gram on 400 lines of artifacts/corpus_words_train.txt.
   ``<ckpt_dir>/ngram_preds/preds_ngram.txt``.
 - ``--sweep_lm 'lm_weight=0.5,0.75'``: one line per point, each point's
   CER JAX's decode's, and ``{"best": ...}`` the first lowest.
-- ``dataset: synthetic`` is refused with data/loaders.py's ``NEEDS_PIL``
-  reason, and a real dataset's line the port does not decode with
-  data/images.py's.
+- ``dataset: synthetic`` renders JAX's lines and batches, which the
+  forward reads as JAX's does (as above); under the default charset its
+  166 classes, which the TINY model's head does not fit, are refused; a real
+  dataset's line the port does not decode is refused with
+  data/images.py's reason.
 """
 
 import dataclasses
@@ -157,7 +159,7 @@ def setup(tmp_path_factory):
                 for p, g in zip(posteriors, greedy_strings)]
 
     return {"tmp": tmp, "yaml": yaml, "charset": charset, "greedy": greedy, "probs": probs,
-            "gts": gts, "ngram": ngram}
+            "gts": gts, "ngram": ngram, "forward": forward, "tree": tree, "jcfg": jcfg}
 
 
 def check_forward(res, setup):
@@ -207,12 +209,74 @@ def test_sweep_lm_matches_jax(setup, capsys):
     assert out[-1] == {"best": best} and res["best"] == best
 
 
+def test_rendered_lines_match_jax(setup, monkeypatch):
+    """``dataset: synthetic`` on the no-accent-with-space charset (the TINY
+    head's 65 classes) with ``eval_corpus``: the lines and batches are
+    those of JAX's pipeline (dtlr_tpu/ngram/rescore.py:81-108: seed 777,
+    every line a corpus window, its generator given the banked faces, its
+    ``BucketBatcher``), and the posteriors and greedy strings JAX's
+    forward's, as ``check_forward`` holds them."""
+    from dtlr_tpu.data.charset import resolve_synthetic_charset
+    from dtlr_tpu.data.synthetic import SyntheticLineGenerator
+    from dtlr_tpu_torch.eval import evaluate as TE
+    from test_torch_pretrain import empty_pools
+    from test_torch_synth_fixture import mpl_faces
+
+    tmp, jcfg = setup["tmp"], setup["jcfg"]
+    yaml = write_yaml(tmp / "synthetic.yaml", dataset="synthetic",
+                      synthetic_charset="no_accent_space", num_images=N_LINES,
+                      eval_corpus=tmp / "corpus.txt", model_config=tmp / "config_cfg.py",
+                      params=tmp / "tiny.npz", ckpt_dir=tmp / "synth", lm_corpus=tmp / "corpus.txt",
+                      **SETTINGS)
+    seen = []
+    forward_batches = TE.forward_batches
+
+    def recorded(model, batches, max_images=-1):
+        def tee():
+            for b in batches:
+                seen.append({k: np.array(getattr(b, k)) for k in ("images", "valid_hw")})
+                yield b
+        return forward_batches(model, tee(), max_images)
+
+    monkeypatch.setattr(rescore, "forward_batches", recorded)
+    empty_pools()
+    res = rescore.main(["--config_path", yaml, "--device", "cpu"])
+
+    empty_pools()
+    corpus = [l.strip() for l in (tmp / "corpus.txt").read_text().splitlines() if l.strip()]
+    gen = SyntheticLineGenerator(
+        charset=resolve_synthetic_charset("no_accent_space"), seed=777,
+        max_words=jcfg.get_default("synthetic_max_words", 8),
+        plain_background=jcfg.get_default("plain_background", False), corpus_lines=corpus,
+        corpus_prob=1.0, fonts=mpl_faces())
+    samples = [gen.sample_dict() for _ in range(N_LINES)]
+    batches = list(BucketBatcher(
+        iter(samples), batch_size=SETTINGS["batch_size"], scales=jcfg["data_aug_scales"],
+        max_size=jcfg["data_aug_max_size"], max_targets=jcfg["max_targets"], train=False,
+        w_max=jcfg["image_w_max"], h_max=jcfg["image_h_max"],
+        transfer_uint8=jcfg["transfer_uint8"]))
+    assert len(seen) == len(batches) == N_LINES // SETTINGS["batch_size"]
+    for got, b in zip(seen, batches):
+        np.testing.assert_array_equal(got["images"], np.asarray(b.images))
+        np.testing.assert_array_equal(got["valid_hw"], np.asarray(b.valid_hw))
+    greedy, probs = [], []
+    for b in batches:
+        frames, p = setup["forward"](nested(setup["tree"]), b.images, b.valid_hw)
+        greedy += [labels_to_text(l, setup["charset"])
+                   for l in greedy_labels(np.asarray(frames, np.int32))]
+        probs += list(np.asarray(p))
+    check_forward(res, {"probs": probs, "greedy": greedy,
+                        "gts": [t for b in batches for t in b.texts]})
+    assert res["gts"] == [s["text"] for s in samples]
+
+
 @pytest.mark.parametrize("dataset,error,reason", [
-    ("synthetic", NotImplementedError, "renders its lines with PIL"),
+    ("synthetic", ValueError, "classes and the lines' charset 166"),
     ("RIMES", UnsupportedImage, "4-component")])
 def test_jax_datasets_are_refused(setup, dataset, error, reason):
-    """The renderer's dataset, and a real dataset's line that the port does
-    not decode (a RIMES layout whose line is a CMYK JPEG)."""
+    """The renderer's lines under a model whose head does not fit their
+    charset, and a real dataset's line that the port does not decode (a
+    RIMES layout whose line is a CMYK JPEG)."""
     root = setup["tmp"] / "data"
     labels = root / "RIMES-2011-Lines" / "labels_corr.pkl"
     labels.parent.mkdir(parents=True, exist_ok=True)
@@ -224,7 +288,7 @@ def test_jax_datasets_are_refused(setup, dataset, error, reason):
         root / "RIMES-2011-Lines" / "Images" / "l0.jpg")
     yaml = write_yaml(setup["tmp"] / f"{dataset}.yaml", dataset=dataset, mode="test",
                       data_root=root, params=setup["tmp"] / "tiny.npz", batch_size=1,
-                      model_config=setup["tmp"] / "config_cfg.py")
+                      model_config=setup["tmp"] / "config_cfg.py", num_images=2)
     with pytest.raises(error, match=reason):
         rescore.main(["--config_path", yaml, "--device", "cpu"])
 

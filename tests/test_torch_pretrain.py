@@ -7,8 +7,11 @@ exported weights and the detection-loss evaluation; JAX's loop: a
 two-epoch run with its evaluations, then a resume whose state is the
 saved one exactly, ``--eval``, the deadlines and ``--train_seed``; the
 class count and label book that a config family derives from the
-charset, against JAX's own entry point. What is checked is the plumbing;
-test_torch_detection_step.py holds the numbers to JAX's.
+charset, against JAX's own entry point; on the rendered Latin stream
+(``--dataset_file synthetic_line_OCR_general``) the first two batches
+JAX's and the first batch's zero-noise detection loss JAX's within
+1e-5. What is checked is the plumbing; test_torch_detection_step.py
+holds the numbers to JAX's.
 """
 
 import copy
@@ -300,3 +303,150 @@ def test_config_file_run_lists_the_keys_it_does_not_read(files, tmp_path):
         pretrain.main(["-c", "dtlr_tpu_torch/configs/Latin.py", "--lines",
                        str(files / "lines.npz"), "--output_dir", str(tmp_path / "swin"),
                        "--device", "cpu", "--options", "backbone=swin_X_224_1k"])
+
+
+# ----------------------------------------------------- the rendered stream
+
+#: the renderer's keys of the TINY rendered runs (round4_chain.sh's corpus
+#: mixing, short lines)
+SYNTH_KEYS = ["synthetic_max_words=3", 'synthetic_corpus_file="artifacts/corpus_words_train.txt"',
+              'synthetic_corpus_val_file="artifacts/corpus_words_val.txt"',
+              "synthetic_corpus_prob=0.5"]
+
+
+def empty_pools():
+    from dtlr_tpu.data import canvas as jax_canvas
+    from dtlr_tpu_torch.data import canvas
+
+    canvas.set_background_dir(None)
+    jax_canvas.set_background_dir(None)
+
+
+def jax_rendered_batches(monkeypatch, argv, n=2):
+    """The first ``n`` training batches of JAX's entry point ``main(argv)``
+    (pretrain or finetune) on the rendered stream, its generators given
+    the banked faces, its Trainer stopped at ``init_params``."""
+    import importlib
+
+    from dtlr_tpu.data import synthetic as jax_synthetic
+    from test_torch_synth_fixture import mpl_faces
+
+    module = importlib.import_module(argv[0])
+    batchers, first = [], []
+
+    class Recorded(module.BucketBatcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            batchers.append(self)
+
+    class Trainer:
+        def __init__(self, *a, **kw):
+            pass
+
+        def init_params(self, arrays):
+            first.append(arrays)
+            raise _Stop
+
+    monkeypatch.setattr(jax_synthetic, "discover_fonts", mpl_faces)
+    monkeypatch.setattr(module, "BucketBatcher", Recorded)
+    monkeypatch.setattr(module, "Trainer", Trainer)
+    empty_pools()
+    try:
+        with pytest.raises(_Stop):
+            module.main(argv[1:])
+        it = iter(batchers[0])
+        rest = [next(it) for _ in range(n - 1)]
+    finally:
+        for b in batchers:
+            b.stop()
+    from dtlr_tpu.train.engine import batch_to_arrays
+
+    return first + [batch_to_arrays(b) for b in rest]
+
+
+def port_step_batches(monkeypatch):
+    """Record the port's training steps' batches (as arrays)."""
+    seen, step = [], engine.Trainer.step
+
+    def spy(self, batch, mark=None):
+        seen.append({k: np.asarray(v) for k, v in engine.batch_to_arrays(batch).items()
+                     if k in ("images", "valid_hw", "labels", "boxes", "valid")})
+        return step(self, batch, mark)
+
+    monkeypatch.setattr(engine.Trainer, "step", spy)
+    return seen
+
+
+def zero_noise_losses(arrays, params_path, max_targets):
+    """The detection loss of one batch with the CDN noise at zero, JAX's
+    and the port's, from the weights at ``params_path`` (the 166-class
+    TINY snapshot): test_torch_detection_step.py's protocol with the
+    recipe's auction matcher (the renderer's zero-height boxes make the
+    exact matcher's GIoU costs NaN)."""
+    import jax
+    import jax.numpy as jnp
+
+    import dtlr_tpu.losses.criterion as jax_criterion
+    from dtlr_tpu.models.dino import DINO as JaxDINO
+    from dtlr_tpu.ops.pixels import prep_images as jax_prep_images
+    from dtlr_tpu.train.checkpoints import load_params_npz as jax_load_params
+    from dtlr_tpu_torch.train.train_step import make_detection_train_step
+    from dtlr_tpu_torch.weights import load_into, params_from_npz
+    from test_torch_detection_step import DN, DN_NUMBER, WEIGHTS
+
+    N = NUM_CLASSES
+    jax_model = JaxDINO(
+        num_classes=N, num_queries=DN.num_queries, hidden_dim=DN.hidden_dim,
+        n_heads=DN.nheads, num_encoder_layers=DN.enc_layers, num_decoder_layers=DN.dec_layers,
+        d_ffn=DN.dim_feedforward, num_feature_levels=4, use_dn=True, dn_number=DN_NUMBER,
+        dn_box_noise_scale=0.0, dn_label_noise_ratio=0.0, dn_labelbook_size=N + 1,
+        max_targets=max_targets, norm_kind="group", encoder_type="windowed",
+        encoder_win=DN.encoder_win, decoder_ca="dense", dense_box_bias=True, flash_attn=False,
+        dtype=jnp.float32)
+    batch = {**arrays, "images": np.asarray(jax_prep_images(arrays["images"],
+                                                            arrays["valid_hw"]))}
+
+    def jax_loss(params, batch):
+        targets = {k: batch[k] for k in ("labels", "boxes", "valid")}
+        key = jax.random.PRNGKey(0)
+        out = jax_model.apply(params, batch["images"], batch["valid_hw"], targets, train=True,
+                              rngs={"dn": key, "dropout": jax.random.fold_in(key, 1)})
+        return jax_criterion.detection_loss(out, targets, N, WEIGHTS, matcher_impl="jax")[0]
+
+    jtotal = jax.jit(jax_loss)(jax_load_params(str(params_path)), batch)
+    model = build_dino(dataclasses.replace(DN, dn_labelbook_size=N + 1), N, device="cpu")
+    load_into(model, params_from_npz(str(params_path)))
+    model.train()
+    step = make_detection_train_step(N, WEIGHTS, matcher_impl="jax")
+    with torch.no_grad():
+        total, _ = step.loss_fn(model, {k: torch.from_numpy(np.array(v))
+                                        for k, v in batch.items()})
+    return float(jtotal), float(total)
+
+
+def test_rendered_stream_batches_and_first_loss_match_jax(files, tmp_path, monkeypatch):
+    """``--dataset_file synthetic_line_OCR_general`` with -c Latin_TPU.py:
+    the first two training batches are JAX's entry point's (the held-out
+    stream drawn first, the reuse pool, the recipe's batcher), and the
+    first batch's detection loss with the CDN noise at zero is JAX's
+    within test_torch_detection_step.py's 1e-5."""
+    from test_torch_detection_step import LOSS_REL
+
+    options = [*TINY_KEYS, *SYNTH_KEYS]
+    want = jax_rendered_batches(monkeypatch, [
+        "dtlr_tpu.train.pretrain", "-c", "dtlr_tpu/configs/Latin_TPU.py", "--dataset_file",
+        "synthetic_line_OCR_general", "--output_dir", str(tmp_path / "jax"), "--seed", "5",
+        "--options", *options])
+    seen = port_step_batches(monkeypatch)
+    empty_pools()
+    res = pretrain.main(["-c", "dtlr_tpu_torch/configs/Latin_TPU.py", "--dataset_file",
+                         "synthetic_line_OCR_general", "--params", str(files / "tiny.npz"),
+                         "--output_dir", str(tmp_path / "port"), "--seed", "5", "--epochs", "1",
+                         "--steps_per_epoch", "2", "--device", "cpu", "--options", *options])
+    assert res["num_classes"] == NUM_CLASSES and np.isfinite(res["train"]["loss"])
+    assert len(seen) == 2
+    for got, w in zip(seen, want):
+        for k in ("images", "valid_hw", "labels", "boxes", "valid"):
+            np.testing.assert_array_equal(got[k], np.asarray(w[k]), err_msg=k)
+    jax_loss, port_loss = zero_noise_losses(seen[0], files / "tiny.npz", max_targets=16)
+    assert abs(port_loss - jax_loss) <= LOSS_REL * abs(jax_loss)

@@ -13,7 +13,8 @@ PIL as JPEG and PNG (and TIFF for the ciphers).
 - ``finetune --dataset_file RIMES`` takes a step at ``TINY`` and reads
   the ``val`` split; ``pretrain --dataset_file RIMES --eval`` reads it,
   and a training run is refused (no character boxes).
-- ``rescore``'s ``open_lines`` builds a ``dataset: RIMES`` config, and
+- ``rescore``'s ``open_lines`` builds a ``dataset: RIMES`` config and
+  renders a ``dataset: synthetic`` one, and
   ``dtlr_tpu_torch/ngram/smoke_words.yaml`` parses to the settings of
   chip_smoke.py's ``ngram`` phase.
 """
@@ -153,7 +154,12 @@ def test_dataset_equals_jax(root, name, mode, kw):
 
 
 def test_registry_keeps_only_the_renderer_refused(root):
-    assert set(TL.NEEDS_PIL) == {"synthetic_line_OCR_general"}
+    """No dataset is refused: the renderer's name builds the generator."""
+    assert not hasattr(TL, "NEEDS_PIL")
+    from dtlr_tpu_torch.data.synthetic import SyntheticLineGenerator
+
+    gen = TL.build_dataset("synthetic_line_OCR_general", "train", seed=1, max_words=2)
+    assert isinstance(gen, SyntheticLineGenerator) and len(gen.charset) == 166
     assert TL.permuted_latin_charset() == JL.permuted_latin_charset()
     with pytest.raises(KeyError, match="split 'train'"):
         TL.build_dataset("borg", "train", root=root)
@@ -219,8 +225,9 @@ def test_rescore_opens_a_dataset_and_parses_the_shipped_config(root):
     ds = rescore.open_lines({"dataset": "RIMES", "data_root": root})
     assert isinstance(ds, TL.RIMES) and [e["id"] for e in ds.items] == ["te0", "te1"]
     assert len(rescore.open_lines({"dataset": "RIMES", "data_root": root, "mode": "val"})) == 2
-    with pytest.raises(NotImplementedError, match="renders its lines with PIL"):
-        rescore.open_lines({"dataset": "synthetic"})
+    rendered = rescore.open_lines({"dataset": "synthetic", "num_images": 2})
+    assert len(rendered) == 2 and len(rendered.charset) == 166
+    assert rendered[0]["image"].dtype == np.float32 and rendered[0]["text"]
     ycfg = rescore.load_yaml(os.path.join(REPO, "dtlr_tpu_torch", "ngram", "smoke_words.yaml"))
     import chip_smoke
 

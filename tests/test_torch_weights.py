@@ -18,7 +18,7 @@ from test_torch_model import NUM_CLASSES, TINY, jax_tiny, make_lines, perturbed_
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = os.path.join(REPO, "artifacts", "r4ft_params.npz")
 FIXTURE = os.path.join(REPO, "dtlr_tpu_torch", "assets", "smoke_lines.npz")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "dtlr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "freetype", "fontTools", "dtlr_tpu")
 
 
 def _leaf_paths(tree, prefix=""):
@@ -128,12 +128,13 @@ def test_port_imports_no_jax_pil_or_dtlr_tpu():
 
 def test_import_scan_covers_every_module():
     """The scan above reads every module of the package, the n-gram
-    decoder's, the Swin and ConvNeXt backbones' and the LM rescorer's among
-    them."""
+    decoder's, the Swin and ConvNeXt backbones', the LM rescorer's and the
+    Latin renderer's among them."""
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {f"dtlr_tpu_torch/{m}.py" for m in (
         "ngram/lm_decode", "ngram/preprocessing", "ngram/rescore", "models/swin",
-        "models/convnext", "models/lm_rescorer")} <= scanned
+        "models/convnext", "models/lm_rescorer", "data/synthetic", "data/canvas",
+        "data/corpus", "data/fonts", "data/glyphs", "data/pil_draw")} <= scanned
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
